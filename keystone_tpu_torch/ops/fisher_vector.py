@@ -16,6 +16,7 @@ so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -25,8 +26,11 @@ from keystone_tpu_torch.ops.fv_common import fv_constants
 
 LAUNCHES = 0
 
-# Splits of the m axis aim at this many blocks per SM over the whole grid.
-_BLOCKS_PER_SM = 2
+# A split covers at least this many tiles, so that a block's constant load
+# (128 KB at d=64, k=256) and partial write are spread over enough rows; a
+# block's fixed cost is priced at this many tiles' work.
+_MIN_SPLIT_TILES = 2
+_BLOCK_OVERHEAD_TILES = 1
 
 
 class FVOperands(NamedTuple):
@@ -106,17 +110,35 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.keystone_fv_tile_rows, lib.keystone_fv_max_components):
             fn.argtypes = []
             fn.restype = ctypes.c_int
+        lib.keystone_fv_resident_blocks.argtypes = [ctypes.c_int]
+        lib.keystone_fv_resident_blocks.restype = ctypes.c_int
     return lib
 
 
+def resident_blocks(d: int) -> int:
+    """Blocks of the kernel that the runtime keeps resident on one SM of the
+    current card at descriptor width ``d`` (-1 for a width it does not take)."""
+    return _library().keystone_fv_resident_blocks(d)
+
+
+# The plan is a host loop over every split length, run twice a request.
+@functools.lru_cache(maxsize=None)
 def split_plan(B: int, m: int, tile_rows: int, sm_count: int):
     """(S, rows_per_split): cut each image's m rows into S splits of whole
-    tiles so that the B·S blocks come near ``_BLOCKS_PER_SM`` per SM."""
+    tiles, each at least ``_MIN_SPLIT_TILES`` tiles long (unless the image
+    is shorter), choosing the split length whose B·S blocks (one resident
+    per SM) finish soonest: waves × (tiles per split + the
+    ``_BLOCK_OVERHEAD_TILES`` a block spends on its constants and partials),
+    the longest such split on a tie, so that fewer partials are written."""
     tiles = -(-m // tile_rows)
-    want = max(1, -(-_BLOCKS_PER_SM * sm_count // B))
-    per_split = -(-tiles // min(tiles, want))
-    rows_per_split = per_split * tile_rows
-    return -(-m // rows_per_split), rows_per_split
+    best = None
+    for per in range(min(_MIN_SPLIT_TILES, tiles), tiles + 1):
+        S = -(-tiles // per)
+        cost = -(-B * S // sm_count) * (per + _BLOCK_OVERHEAD_TILES)
+        if best is None or cost <= best[0]:
+            best = (cost, S, per)
+    _, S, per = best
+    return S, per * tile_rows
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:

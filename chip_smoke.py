@@ -22,9 +22,24 @@ script exits non-zero:
    64 images), counting kernel launches on that path, and checks the
    scores against the same pipeline with the plain Fisher-vector version on
    the card and against the port on the CPU;
-5. one JSON line with every kernel's launches, error and times: ``ms`` is
-   the kernel's device time per call at B=64 (``torch.profiler``),
-   ``call_ms`` the same call between CUDA events, host included.
+5. fits the pipeline at reduced size (64×64 images, ``gmm_k=16``,
+   ``pca_dims=16``, 16 classes, 256 images) on the card and on the CPU from
+   one seed, and checks that the PCA (up to sign), the GMM and the test
+   scores agree and that the test errors are within one point;
+6. fits it at full width (the reference's real-data settings: 65,536
+   features, 1,000 classes, 8 blocks of 8,192, 3 epochs) on 8,192 training
+   and 512 test 256×256 synthetic images, printing each stage's seconds
+   between CUDA events, the Fisher-vector launches of the fit (one per
+   branch and training batch), the objective after each epoch (it may not
+   grow by more than a relative 1e-3), the train and test errors and the
+   peak device memory, and checks the train error and, in float64, the
+   last block's normal equations; then serves the fitted pipeline, carried through
+   ``convert.py``, with ``CompiledPipeline`` for requests of 1 and 64
+   images and checks its top-k against the fitted pipeline's direct call;
+7. one JSON line with every kernel's launches (on every path: serving,
+   fitting, serving what was fitted), error and times: ``ms`` is the
+   kernel's device time per call at B=64 (``torch.profiler``), ``call_ms``
+   the same call between CUDA events, host included.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -53,6 +68,29 @@ FV_RTOL, FV_ATOL = 1e-4, 1e-5
 # Pipeline scores, relative to the largest |score|: card with the plain
 # Fisher vectors, and the port on the CPU, against the card with the kernel.
 SCORE_RTOL = 1e-3
+
+# The fit on the card against the fit on the CPU, from one seed: they draw
+# the same random numbers and differ in rounding. PCA components up to sign
+# (rounding turns components whose singular values are close); the GMM
+# (means in the same signs) and the test scores relative to each array's
+# largest magnitude; test errors within one point.
+FIT_PCA_ATOL = 1e-3
+FIT_RTOL = 1e-2
+FIT_ERROR_TOL = 0.01
+# An epoch may raise the objective by no more than the rounding of a
+# float32 inverse at this conditioning.
+OBJECTIVE_RTOL = 1e-3
+# The full-width head's last block against its own normal equations, in
+# float64: |(A_l' w A_l + lam I) W_l - A_l' w R+| / |A_l' w R+|, and W_l's
+# distance from a float64 solve relative to its norm. Float32 grams,
+# inverse and running residual leave both of order kappa * u (kappa the
+# ridge gram's condition number, measured in float64; u = 2^-24): each may
+# be at most SOLVE_KAPPA_U times that. A 1% error in W_l, or a wrong
+# inverse, exceeds it.
+SOLVE_KAPPA_U = 4.0
+F32_UNIT_ROUNDOFF = 2.0**-24
+# The full-width head's train top-1 error: 65,536 features over 8,192 rows.
+TRAIN_ERROR_MAX = 0.01
 
 FULL = dict(B=4, m=3721, d=64, k=256)
 REQUESTS = (1, 3, 16, 64)
@@ -398,6 +436,198 @@ def serve(torch) -> dict:
     return {"launches": launches}
 
 
+def fit_reduced(torch) -> None:
+    """The same reduced fit on the card and on the CPU, compared."""
+    import numpy as np
+
+    from keystone_tpu_torch.convert import params_to_numpy
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+    from keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv import (
+        ImageNetSiftLcsFVConfig,
+        evaluate,
+        fit,
+        resolve_scale,
+    )
+
+    conf = resolve_scale(ImageNetSiftLcsFVConfig(gmm_k=16, pca_dims=16, synthetic_n=256, synthetic_classes=16))
+    train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes, seed=conf.seed)
+    got, err, scores = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        scored = fit(conf, train, conf.synthetic_classes, device=dev)
+        got[dev] = params_to_numpy(scored)
+        err[dev] = evaluate(scored, conf, test, device=dev)
+        with torch.inference_mode():
+            scores[dev] = scored(torch.from_numpy(test.data).to(dev)).cpu().numpy()
+        print(f"reduced fit on {dev}: {time.perf_counter() - t0:.3f} s, feature dim "
+              f"{conf.feature_dim}, test top-{conf.top_k} error {err[dev][0]:.4f}, top-1 {err[dev][1]:.4f}")
+    card, cpu = got["cuda"], got["cpu"]
+    worst = {}
+    for br in ("sift", "lcs"):
+        gc, wc = card[f"{br}.pca.components"], cpu[f"{br}.pca.components"]
+        signs = np.sign((gc * wc).sum(axis=0))
+        worst[f"{br} pca components (abs)"] = (float(np.abs(gc * signs - wc).max()), FIT_PCA_ATOL)
+        for key, flip in (("weights", 1), ("means", signs), ("variances", 1)):
+            g, w = card[f"{br}.gmm.{key}"] * flip, cpu[f"{br}.gmm.{key}"]
+            worst[f"{br} gmm {key} (rel. to max)"] = (float(np.abs(g - w).max() / np.abs(w).max()), FIT_RTOL)
+    worst["test scores (rel. to max)"] = (
+        float(np.abs(scores["cuda"] - scores["cpu"]).max() / np.abs(scores["cpu"]).max()), FIT_RTOL)
+    for i, name in enumerate(("top-k error", "top-1 error")):
+        worst[f"test {name} (abs)"] = (abs(err["cuda"][i] - err["cpu"][i]), FIT_ERROR_TOL)
+    print("card vs cpu: " + "; ".join(f"{k} {v:.3e} (tol {t})" for k, (v, t) in worst.items()))
+    bad = [k for k, (v, t) in worst.items() if not v <= t]
+    if bad:
+        raise AssertionError(f"the reduced fit on the card disagrees with the cpu: {bad}")
+
+
+def full_width_data(np):
+    """8,192 training and 512 test 256×256 images over 1,000 classes, from
+    four seeded ``ImageNetLoader.synthetic`` calls run in threads (numpy
+    draws and array arithmetic release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader, LabeledData
+
+    def one(seed):
+        return ImageNetLoader.synthetic(n=2048, num_classes=1000, size=256, seed=seed)
+
+    with ThreadPoolExecutor(4) as pool:
+        parts = list(pool.map(one, (0, 10, 20, 30)))
+    train = LabeledData(np.concatenate([p[0].data for p in parts]), np.concatenate([p[0].labels for p in parts]))
+    test = LabeledData(np.concatenate([p[1].data[:128] for p in parts]),
+                       np.concatenate([p[1].labels[:128] for p in parts]))
+    return train, test
+
+
+def check_last_block(torch, scored, conf, train) -> None:
+    """The full-width solve, checked in float64 on the card. The last block
+    visited in the last epoch solved its normal equations against the
+    residual of the final W, so with A the training features centered at
+    their weighted mean, w the row weights, R = (Y - y_mean) - A W and
+    R+ = R + A_l W_l, its W_l satisfies (A_l' w A_l + lam I) W_l = A_l' w R+.
+    Prints that residual relative to |A_l' w R+|, W_l's distance from a
+    float64 solve of the same normal equations relative to its norm, and
+    the condition number of the block's ridge gram, and holds both to
+    SOLVE_KAPPA_U times the rounding that float32 leaves at it."""
+    from keystone_tpu_torch.nodes.learning.block_least_squares import BlockWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
+    from keystone_tpu_torch.workflow import Pipeline
+
+    t0 = time.perf_counter()
+    head = scored.stages[-1]
+    with torch.inference_mode():
+        A = Pipeline(scored.stages[:-1]).apply_in_batches(train.data, device="cuda").double()
+        Y = ClassLabelIndicators(1000)(torch.from_numpy(train.labels).cuda()).double()
+        w = BlockWeightedLeastSquaresEstimator(mixture_weight=conf.mixture_weight)._weights(Y)
+        A -= (w @ A) / w.sum()
+        R = Y - (w @ Y) / w.sum() - A @ head.W.double()
+        s, e = head.blocks[-1]
+        A_l, W_l = A[:, s:e], head.W[s:e].double()
+        del A
+        rhs = (A_l * w[:, None]).T @ (R + A_l @ W_l)
+        gram = (A_l * w[:, None]).T @ A_l
+        gram.diagonal().add_(conf.lam)
+        residual = float(torch.linalg.norm(gram @ W_l - rhs) / torch.linalg.norm(rhs))
+        W64 = torch.cholesky_solve(rhs, torch.linalg.cholesky(gram))
+        dist = float(torch.linalg.norm(W_l - W64) / torch.linalg.norm(W64))
+        eig = torch.linalg.eigvalsh(gram)
+        cond = float(eig[-1] / eig[0])
+    tol = SOLVE_KAPPA_U * cond * F32_UNIT_ROUNDOFF
+    print(f"last block {s}:{e} in float64: ridge gram condition number {cond:.3e}; normal-equation residual "
+          f"{residual:.3e}, distance from a float64 solve {dist:.3e} (tol {SOLVE_KAPPA_U} x kappa x u = {tol:.3e}) "
+          f"({time.perf_counter() - t0:.3f} s)")
+    if not (residual <= tol and dist <= tol):
+        raise AssertionError(f"the last block's W does not solve its normal equations: {residual}, {dist}")
+
+
+def fit_full(torch) -> dict:
+    import numpy as np
+
+    import keystone_tpu_torch.ops.fisher_vector as fvo
+    from keystone_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
+    from keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv import (
+        ImageNetSiftLcsFVConfig,
+        build_serving_pipeline,
+        evaluate,
+        fit,
+        resolve_scale,
+    )
+    from keystone_tpu_torch.utils.stages import StageTimer
+    from keystone_tpu_torch.workflow.serving import CompiledPipeline
+
+    # The reference's real-data settings, on synthetic images.
+    conf = resolve_scale(ImageNetSiftLcsFVConfig(pca_dims=64), real=True)
+    if (conf.gmm_k, conf.num_iters, conf.feature_dim) != (256, 3, 65536):
+        raise AssertionError("the full-width settings are not the reference's real-data settings")
+    t0 = time.perf_counter()
+    train, test = full_width_data(np)
+    print(f"data: {len(train.data)} training and {len(test.data)} test images of "
+          f"{train.data.shape[1:]} over 1000 classes, made in {time.perf_counter() - t0:.3f} s (host)")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fvo.LAUNCHES = 0  # the fit path's run starts here
+    t0 = time.perf_counter()
+    with StageTimer("cuda") as timer:
+        scored = fit(conf, train, 1000, device="cuda")
+    fit_s = timer.seconds()  # synchronises
+    wall = time.perf_counter() - t0
+    launches = fvo.LAUNCHES  # the fit path's run ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    head = scored.stages[-1]
+    print(f"fit wall {wall:.3f} s; head W {tuple(head.W.shape)}, blocks {len(head.blocks)} of "
+          f"{head.blocks[0][1] - head.blocks[0][0]}")
+    label = {"apply the prefix to the fit data": "featurizing the training set"}
+    print("fit stages (s, between CUDA events): "
+          + ", ".join(f"{label.get(name, name)} {s:.4f}" for name, s in fit_s.items())
+          + f"; sum {sum(fit_s.values()):.4f}")
+    print(f"peak device memory of the fit: {peak:.3f} GiB")
+    want_launches = 2 * -(-len(train.data) // 64)
+    print(f"fv launches of the fit: {launches} (2 branches x {want_launches // 2} training batches)")
+    if launches != want_launches:
+        raise AssertionError(f"the fit launched the fv kernel {launches} times, want {want_launches}")
+    if head.W.shape != (65536, 1000) or len(head.blocks) != 8:
+        raise AssertionError("the head is not 65,536 x 1,000 in 8 blocks")
+    objs = [float(timer.notes[f"objective after epoch {e}"]) for e in range(1, conf.num_iters + 1)]
+    print("objective sum_i w_i |r_i|^2 + lam |W|^2 after each epoch: " + ", ".join(f"{o:.6e}" for o in objs))
+    if not all(np.isfinite(objs)) or any(b > a * (1 + OBJECTIVE_RTOL) for a, b in zip(objs, objs[1:])):
+        raise AssertionError(f"the objective grew across epochs: {objs}")
+
+    t0 = time.perf_counter()
+    train_err = evaluate(scored, conf, train, device="cuda")
+    test_err = evaluate(scored, conf, test, device="cuda")
+    print(f"errors: train top-5 {train_err[0]:.4f}, top-1 {train_err[1]:.4f}; test top-5 {test_err[0]:.4f}, "
+          f"top-1 {test_err[1]:.4f} ({time.perf_counter() - t0:.3f} s)")
+    # 65,536 features over 8,192 training rows, at lam = 1e-3: the head
+    # separates its training set.
+    if train_err[1] > TRAIN_ERROR_MAX:
+        raise AssertionError(f"train top-1 error {train_err[1]} above {TRAIN_ERROR_MAX}")
+    check_last_block(torch, scored, conf, train)
+
+    # Serve what was fitted, carried through convert.py as --params would.
+    served = build_serving_pipeline(params_from_numpy(params_to_numpy(scored), "cuda"), conf)
+    engine = CompiledPipeline(served, max_batch=64, device="cuda")
+    engine.warmup((256, 256, 3))
+    direct = scored.and_then(TopKClassifier(conf.top_k)).eval()
+    fvo.LAUNCHES = 0  # serving the fitted pipeline starts here
+    served_launches = 0
+    for n in (1, 64):
+        X = test.data[:n]
+        before = fvo.LAUNCHES
+        t0 = time.perf_counter()
+        topk = engine(X)
+        ms = 1e3 * (time.perf_counter() - t0)
+        served_launches += fvo.LAUNCHES - before  # the direct call below is a check
+        with torch.inference_mode():
+            want = direct(torch.from_numpy(X).cuda()).cpu().numpy()
+        same = np.array_equal(topk, want)
+        print(f"fitted pipeline, request of {n}: {ms:.3f} ms, top-5 equal to the direct call: {same}")
+        if not same:
+            raise AssertionError("the served fitted pipeline disagrees with its direct call")
+    return {"launches": launches, "served_launches": served_launches}
+
+
 def main() -> int:
     import torch
 
@@ -442,13 +672,24 @@ def main() -> int:
     phase("serve")
     served = serve(torch)
 
+    phase("fit, reduced: card against cpu")
+    fit_reduced(torch)
+
+    phase("fit, full width")
+    fitted = fit_full(torch)
+
     phase("kernels")
     kernels = [{
         "name": "fisher_vector",
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/fisher_vector.cu",
         "replaces": "keystone_tpu/ops/fisher_vector_pallas.py:108",
-        "launches": served["launches"],
+        "launches": served["launches"] + fitted["launches"] + fitted["served_launches"],
+        "launches_by_path": {
+            "serve": served["launches"],
+            "fit": fitted["launches"],
+            "serve fitted": fitted["served_launches"],
+        },
         "max_abs_err": max_err,
         "ms": timing["ms"],
         "call_ms": timing["call_ms"],
@@ -461,8 +702,8 @@ def main() -> int:
         "bound_ms_by_batch": {str(B): t["bound_ms"] for B, t in timings.items()},
         "f32_bound_ms": timing["f32_bound_ms"],
     }]
-    if served["launches"] < 1:
-        raise AssertionError("fisher_vector was not launched on the main path")
+    if min(kernels[0]["launches_by_path"].values()) < 1:
+        raise AssertionError("fisher_vector was not launched on every path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -29,3 +29,13 @@ def resolve_device(device=None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def as_input(data, device=None) -> torch.Tensor:
+    """``data`` as a float32 tensor for a fit: a tensor stays on its device;
+    anything else (a host array) goes to ``resolve_device(device)``, so
+    ``cuda`` unless the caller names another."""
+    if isinstance(data, torch.Tensor):
+        resolve_device(data.device)
+        return data.to(default_dtype)
+    return torch.as_tensor(data, dtype=default_dtype, device=resolve_device(device))

@@ -1,7 +1,9 @@
-"""Carries a fitted ImageNetSiftLcsFV pipeline's parameters into the port.
+"""Carries a fitted ImageNetSiftLcsFV pipeline's parameters into and out of
+the port.
 
 ``params_from_numpy`` takes a dict of arrays (numpy or tensors) under these
-keys and builds the port's fitted modules on ``device``:
+keys and builds the port's fitted modules on ``device``; ``params_to_numpy``
+is its inverse, from a pipeline the port fitted:
 
 - ``sift.pca.components`` (128, p), ``sift.pca.mean`` (128,);
 - ``sift.gmm.weights`` (k,), ``sift.gmm.means`` (k, p), ``sift.gmm.variances`` (k, p);
@@ -53,3 +55,29 @@ def params_from_numpy(d: dict, device=None) -> ServingParams:
     blocks = [tuple(int(v) for v in se) for se in np.asarray(d["head.blocks"])]
     mods["head"] = BlockLinearMapper(d["head.W"], blocks, d.get("head.b"), device=device)
     return ServingParams(**mods)
+
+
+def params_to_numpy(pipeline) -> dict:
+    """The keys above, as numpy arrays, from a fitted pipeline whose first
+    stages are the gathered branches (``sift`` then ``lcs``, each holding
+    one ``PCATransformer`` and one ``FisherVector``) and the head: what
+    ``fit_head`` returns, or a serving pipeline."""
+    gather, head = pipeline.stages[0], pipeline.stages[1]
+    if not isinstance(head, BlockLinearMapper) or len(gather.branches) != len(BRANCHES):
+        raise ValueError("want a pipeline of [gather of the two branches, BlockLinearMapper, ...]")
+    d = {}
+    for br, branch in zip(BRANCHES, gather.branches):
+        (pca,) = [s for s in branch.stages if isinstance(s, PCATransformer)]
+        (fv,) = [s for s in branch.stages if isinstance(s, FisherVector)]
+        d[f"{br}.pca.components"] = pca.components
+        if pca.mean is not None:
+            d[f"{br}.pca.mean"] = pca.mean
+        d[f"{br}.gmm.weights"] = fv.weights
+        d[f"{br}.gmm.means"] = fv.means
+        d[f"{br}.gmm.variances"] = fv.variances
+    d["head.W"] = head.W
+    if head.b is not None:
+        d["head.b"] = head.b
+    d = {k: v.detach().cpu().numpy() for k, v in d.items()}
+    d["head.blocks"] = np.array(head.blocks, dtype=np.int64)
+    return d

@@ -1,19 +1,39 @@
-"""Block linear model, apply only (counterpart of
-keystone_tpu/nodes/learning/block_least_squares.py::BlockLinearMapper).
+"""Block least squares: the linear model and its solver.
 
-``scores = Σ_b X[..., s:e] @ W_b + b``. The per-block products are plain
-``torch.matmul`` in float32 (TF32 off), as the reference leaves them to
-XLA. The solver that fits ``W`` and sparse input are not ported yet.
+Counterpart of ``keystone_tpu/nodes/learning/block_least_squares.py``:
+
+- ``BlockLinearMapper``: ``scores = Σ_b X[..., s:e] @ W_b + b``, per-block
+  products in float32 (TF32 off), as the reference leaves them to XLA;
+- ``resolve_block_size``: ``"auto"`` → the smallest power of two covering
+  d, capped at 4,096 for CPU tensors and 8,192 on the card, and halved
+  until the cached inverses fit a quarter of the memory budget;
+- ``BlockLeastSquaresEstimator.fit``, the dense path: features and labels
+  centered (weighted means when rows are weighted), block coordinate
+  descent (``linalg/bcd.py``), and the intercept ``b = ȳ_w − x̄_wᵀW``;
+- ``BlockWeightedLeastSquaresEstimator``: class-rebalanced row weights,
+  ``(1 − mixture_weight) + mixture_weight · n / (k · n_c)`` for a row of
+  class c.
+
+Sparse input, streaming, checkpoints and the model-parallel ring are not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from keystone_tpu_torch.config import default_dtype, resolve_device
-from keystone_tpu_torch.workflow import Transformer
+from keystone_tpu_torch.config import as_input, default_dtype, resolve_device
+from keystone_tpu_torch.linalg.bcd import block_coordinate_descent
+from keystone_tpu_torch.linalg.row_matrix import (
+    HBM_BUDGET_BYTES,
+    solver_matmul,
+    weighted_col_sums,
+)
+from keystone_tpu_torch.utils.stages import mark
+from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 
 
 class BlockLinearMapper(Transformer):
@@ -40,3 +60,74 @@ class BlockLinearMapper(Transformer):
         if self.b is not None:
             out = out + self.b
         return out
+
+
+def resolve_block_size(block_size, d: int, device) -> int:
+    if block_size != "auto":
+        return int(block_size)
+    cap = 4096 if torch.device(device).type == "cpu" else 8192
+    b = min(cap, 1 << math.ceil(math.log2(max(d, 128))))
+    itemsize = torch.finfo(default_dtype).bits // 8
+    while b > 128 and d * b * itemsize > HBM_BUDGET_BYTES // 4:
+        b //= 2
+    return b
+
+
+class BlockLeastSquaresEstimator(LabelEstimator):
+    """``fit`` runs on the device of the data tensor it is given; host
+    arrays go to ``device`` (``cuda`` unless named)."""
+
+    def __init__(self, block_size="auto", num_iters: int = 1, lam: float = 0.0,
+                 fit_intercept: bool = True, device=None):
+        self.block_size = block_size
+        self.num_iters = num_iters
+        self.lam = lam
+        self.fit_intercept = fit_intercept
+        self.device = device
+
+    def _weights(self, Y: torch.Tensor) -> Optional[torch.Tensor]:
+        return None
+
+    def fit(self, data, labels) -> BlockLinearMapper:
+        X = as_input(data, self.device)
+        Y = as_input(labels, X.device).to(X.device)
+        weights = self._weights(Y)
+        x_mean = y_mean = None
+        if self.fit_intercept:
+            # The intercept of weighted ridge absorbs the weighted means.
+            if weights is None:
+                x_mean = X.sum(dim=0) / X.shape[0]
+                y_mean = Y.sum(dim=0) / Y.shape[0]
+            else:
+                wsum = torch.clamp_min(weights.sum(), 1e-12)
+                x_mean = weighted_col_sums(X, weights) / wsum
+                y_mean = weighted_col_sums(Y, weights) / wsum
+            X, Y = X - x_mean, Y - y_mean
+            mark("centering")
+        W_blocks, blocks = block_coordinate_descent(
+            X, Y,
+            block_size=resolve_block_size(self.block_size, X.shape[1], X.device),
+            num_iters=self.num_iters,
+            lam=self.lam,
+            row_weights=weights,
+        )
+        W = torch.cat(W_blocks, dim=0)
+        b = None if y_mean is None else y_mean - solver_matmul(x_mean[None, :], W)[0]
+        return BlockLinearMapper(W, blocks, b, device=W.device)
+
+
+class BlockWeightedLeastSquaresEstimator(BlockLeastSquaresEstimator):
+    def __init__(self, block_size="auto", num_iters: int = 1, lam: float = 0.0,
+                 mixture_weight: float = 0.5, fit_intercept: bool = True, device=None):
+        super().__init__(block_size, num_iters, lam, fit_intercept, device)
+        self.mixture_weight = mixture_weight
+
+    def _weights(self, Y: torch.Tensor) -> Optional[torch.Tensor]:
+        if self.mixture_weight == 0.0:
+            return None  # exactly the unweighted problem
+        # A row's class is the argmax of its ±1 indicators.
+        classes = Y.argmax(dim=1)
+        n, k = Y.shape
+        counts = torch.clamp_min(torch.bincount(classes, minlength=k).to(Y.dtype), 1.0)
+        per_class = (1.0 - self.mixture_weight) + self.mixture_weight * n / (k * counts)
+        return per_class[classes]

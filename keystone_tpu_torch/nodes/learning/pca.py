@@ -1,12 +1,13 @@
-"""PCA projection, apply only (counterpart of
-keystone_tpu/nodes/learning/pca.py::PCATransformer). Fitting comes later."""
+"""PCA (counterpart of keystone_tpu/nodes/learning/pca.py): the projection
+``PCATransformer`` and the local SVD fit ``PCAEstimator``. The reference's
+``DistributedPCAEstimator`` (TSQR over a mesh) is not ported."""
 
 from __future__ import annotations
 
 import torch
 
-from keystone_tpu_torch.config import default_dtype, resolve_device
-from keystone_tpu_torch.workflow import Transformer
+from keystone_tpu_torch.config import as_input, default_dtype, resolve_device
+from keystone_tpu_torch.workflow import Estimator, Transformer
 
 
 class PCATransformer(Transformer):
@@ -27,3 +28,20 @@ class PCATransformer(Transformer):
         if self.mean is not None:
             X = X - self.mean
         return X @ self.components
+
+
+class PCAEstimator(Estimator):
+    """The top ``dims`` right singular vectors of the centered data, from
+    one ``torch.linalg.svd``. Their signs are the solver's choice, as in the
+    reference. ``fit`` runs on the device of a tensor it is given; a host
+    array goes to ``device`` (``cuda`` unless named)."""
+
+    def __init__(self, dims: int, device=None):
+        self.dims = dims
+        self.device = device
+
+    def fit(self, data) -> PCATransformer:
+        X = as_input(data, self.device)
+        mean = X.mean(dim=0)
+        _u, _s, vt = torch.linalg.svd(X - mean, full_matrices=False)
+        return PCATransformer(vt[: self.dims].T.contiguous(), mean, device=X.device)

@@ -1,37 +1,55 @@
-"""ImageNetSiftLcsFV — the north-star pipeline, serving path.
+"""ImageNetSiftLcsFV — the north-star pipeline: fit and serve.
 
-Counterpart of ``keystone_tpu/pipelines/images/imagenet_sift_lcs_fv.py``
-for a fitted pipeline answering requests (fitting is not ported yet):
+Counterpart of ``keystone_tpu/pipelines/images/imagenet_sift_lcs_fv.py``:
 
     images (n, H, W, 3) ─┬─ GrayScaler → dense SIFT (128-d) → PCA → FisherVector → SignedHellinger → L2 ─┐
                          └─ LCS (96-d)                       → PCA → FisherVector → SignedHellinger → L2 ─┴─ gather → BlockLinearMapper → TopK
 
-Full width, as the reference's ``resolve_scale`` sets it for real data:
-``pca_dims=64``, ``gmm_k=256``, so 2·(2·256·64) = 65,536 features.
+Fitting (the reference's non-streamed ``run``, without test-time
+augmentation) goes in two steps:
+
+- ``fit_featurizer``: each branch's PCA and GMM on a descriptor sample of
+  the training images (branch seeds ``seed`` and ``seed + 1``);
+- ``fit_head``: the class-weighted block least-squares head on the
+  training set's features, through ``Pipeline.and_then(estimator, data,
+  labels)``.
+
+``run`` fits on synthetic images and scores the test split; ``evaluate``
+gives its top-k and top-1 errors. Full width, as ``resolve_scale`` sets it
+for real data: ``pca_dims=64``, ``gmm_k=256``, so 2·(2·256·64) = 65,536
+features, solved in 3 epochs over 8 blocks of 8,192 on the card.
 
 Run ``python -m keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv``
 to serve synthetic requests with seeded random parameters, or pass
-``--params file.npz`` with arrays under the keys ``convert.py`` documents.
+``--params file.npz`` with arrays under the keys ``convert.py`` documents;
+``--fit`` fits on synthetic images instead and prints the errors.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Optional
 
 import numpy as np
 import torch
 
 from keystone_tpu_torch.config import resolve_device
-from keystone_tpu_torch.convert import BRANCHES, ServingParams, params_from_numpy
-from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+from keystone_tpu_torch.convert import BRANCHES, ServingParams, params_from_numpy, params_to_numpy
+from keystone_tpu_torch.loaders.imagenet import ImageNetLoader, LabeledData
+from keystone_tpu_torch.nodes.images.external.fisher_vector import fit_fisher_featurizer
 from keystone_tpu_torch.nodes.images.external.sift import SIFTExtractor
 from keystone_tpu_torch.nodes.images.lcs import LCSExtractor
 from keystone_tpu_torch.nodes.images.pixels import GrayScaler
+from keystone_tpu_torch.nodes.learning.block_least_squares import (
+    BlockWeightedLeastSquaresEstimator,
+)
 from keystone_tpu_torch.nodes.stats.hellinger import SignedHellingerMapper
 from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
+from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
+from keystone_tpu_torch.utils.stages import mark
 from keystone_tpu_torch.workflow import Pipeline
 from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
@@ -47,12 +65,38 @@ class ImageNetSiftLcsFVConfig:
     lcs_step: int = 4
     lcs_bin: int = 4
     pca_dims: int = 64
-    gmm_k: int = 256
+    # None = resolve_scale: 256 for real data, 16 for synthetic.
+    gmm_k: Optional[int] = None
+    gmm_iters: int = 20
+    descriptor_sample: int = 200_000
+    lam: float = 1e-3
+    mixture_weight: float = 0.5
+    block_size: "int | str" = "auto"
+    # None = resolve_scale: 3 epochs for real data, 2 for synthetic.
+    num_iters: Optional[int] = None
     top_k: int = 5
+    seed: int = 0
+    synthetic_n: int = 512
+    synthetic_classes: int = 16
 
     @property
     def feature_dim(self) -> int:
         return 2 * (2 * self.gmm_k * self.pca_dims)
+
+
+# What resolve_scale fills in: the reference's settings for real ImageNet
+# (65,536 features, 3 epochs) and for its synthetic images.
+REAL_SCALE = dict(gmm_k=256, num_iters=3)
+SYNTHETIC_SCALE = dict(gmm_k=16, num_iters=2)
+
+
+def resolve_scale(conf: ImageNetSiftLcsFVConfig, real: bool = False) -> ImageNetSiftLcsFVConfig:
+    """Fill gmm_k and num_iters at the reference's real-data scale or its
+    synthetic scale (real ImageNet loading is not ported; ``run`` fits on
+    synthetic images). An explicit value always wins."""
+    scale = REAL_SCALE if real else SYNTHETIC_SCALE
+    return replace(conf, **{key: value if getattr(conf, key) is None else getattr(conf, key)
+                            for key, value in scale.items()})
 
 
 def _fronts(conf: ImageNetSiftLcsFVConfig):
@@ -138,16 +182,97 @@ def seeded_params(
     }
 
 
+def fit_featurizer(conf: ImageNetSiftLcsFVConfig, train_images, device=None) -> Pipeline:
+    """Both branches fitted on ``train_images`` and gathered (the
+    reference's ``build_featurizer(conf, train_images)``)."""
+    conf = resolve_scale(conf)
+    fronts = _fronts(conf)
+    return Pipeline.gather([
+        fit_fisher_featurizer(
+            fronts[br], train_images,
+            pca_dims=conf.pca_dims, gmm_k=conf.gmm_k, em_iters=conf.gmm_iters,
+            sample_size=conf.descriptor_sample, seed=seed, device=device,
+        )
+        for br, seed in (("sift", conf.seed), ("lcs", conf.seed + 1))
+    ])
+
+
+def fit_head(featurizer: Pipeline, conf: ImageNetSiftLcsFVConfig, train_images,
+             train_labels, num_classes: int, device=None) -> Pipeline:
+    """``featurizer`` followed by the head fitted on its features of the
+    training images: a pipeline from images to (n, num_classes) scores."""
+    conf = resolve_scale(conf)
+    device = resolve_device(device)
+    targets = ClassLabelIndicators(num_classes)(torch.as_tensor(train_labels).to(device))
+    solver = BlockWeightedLeastSquaresEstimator(
+        block_size=conf.block_size,
+        num_iters=conf.num_iters,
+        lam=conf.lam,
+        mixture_weight=conf.mixture_weight,
+    )
+    return featurizer.and_then(solver, train_images, targets, device=device)
+
+
+def fit(conf: ImageNetSiftLcsFVConfig, train: LabeledData, num_classes: int,
+        device=None) -> Pipeline:
+    """The whole fit: the training images go to ``device`` once, then
+    ``fit_featurizer`` and ``fit_head``."""
+    device = resolve_device(device)
+    images = torch.as_tensor(train.data).to(device)
+    mark("copy of the images to the device")
+    featurizer = fit_featurizer(conf, images, device)
+    return fit_head(featurizer, conf, images, train.labels, num_classes, device)
+
+
+def evaluate(scored: Pipeline, conf: ImageNetSiftLcsFVConfig, test: LabeledData, device=None):
+    """(top-k error, top-1 error) of ``scored`` on ``test``."""
+    with torch.inference_mode():
+        topk = (
+            scored.and_then(TopKClassifier(conf.top_k))
+            .apply_in_batches(test.data, device=device)
+            .cpu().numpy()
+        )
+    correct = (topk == test.labels[:, None]).any(axis=1)
+    return float(1.0 - correct.mean()), float((topk[:, 0] != test.labels).mean())
+
+
+def run(conf: ImageNetSiftLcsFVConfig, device=None, save_params: Optional[str] = None) -> dict:
+    """Fit on synthetic images and score the test split; the reference's
+    result keys. ``save_params`` writes the fitted parameters as an npz
+    that ``--params`` serves."""
+    conf = resolve_scale(conf)
+    device = resolve_device(device)
+    train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes)
+    t0 = time.perf_counter()
+    scored = fit(conf, train, conf.synthetic_classes, device)
+    top_k_error, top1 = evaluate(scored, conf, test, device)
+    elapsed = time.perf_counter() - t0
+    if save_params:
+        np.savez(save_params, **params_to_numpy(scored))
+    return {
+        "top_k_error": top_k_error,
+        "top_1_error": top1,
+        "feature_dim": conf.feature_dim,
+        "seconds": elapsed,
+        "summary": f"top-{conf.top_k} error: {top_k_error:.4f} | top-1 error: {top1:.4f}",
+    }
+
+
 def load_params(path: str) -> dict:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description="Serve ImageNetSiftLcsFV (PyTorch/CUDA port)")
+    p = argparse.ArgumentParser(description="Serve or fit ImageNetSiftLcsFV (PyTorch/CUDA port)")
+    p.add_argument("--fit", action="store_true",
+                   help="fit on synthetic images and print the test errors, instead of serving")
     p.add_argument("--params", help="npz of fitted parameters (keys as in convert.py)")
+    p.add_argument("--save-params", help="with --fit: write the fitted parameters to this npz")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--gmm-k", type=int, default=256)
+    p.add_argument("--gmm-k", type=int, default=None,
+                   help="GMM components per branch (default: 256 to serve; "
+                   "16 to fit on synthetic images)")
     p.add_argument("--pca-dims", type=int, default=64)
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--image-size", type=int, default=256)
@@ -155,14 +280,33 @@ def main(argv=None):
     p.add_argument("--requests", default="1,3,16", help="comma-separated request sizes")
     p.add_argument("--top-k", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--lam", type=float, default=1e-3)
+    p.add_argument("--mixture-weight", type=float, default=0.5)
+    p.add_argument("--synthetic-n", type=int, default=512)
+    p.add_argument("--synthetic-classes", type=int, default=16)
     a = p.parse_args(argv)
 
     device = resolve_device(a.device)
-    conf = ImageNetSiftLcsFVConfig(gmm_k=a.gmm_k, pca_dims=a.pca_dims, top_k=a.top_k)
+    if a.fit:
+        out = run(
+            ImageNetSiftLcsFVConfig(
+                pca_dims=a.pca_dims, gmm_k=a.gmm_k, lam=a.lam,
+                mixture_weight=a.mixture_weight, top_k=a.top_k, seed=a.seed,
+                synthetic_n=a.synthetic_n, synthetic_classes=a.synthetic_classes,
+            ),
+            device,
+            save_params=a.save_params,
+        )
+        print(out["summary"])
+        print(f"feature dim {out['feature_dim']} | total {out['seconds']:.2f}s")
+        return out
+
+    gmm_k = 256 if a.gmm_k is None else a.gmm_k
+    conf = ImageNetSiftLcsFVConfig(gmm_k=gmm_k, pca_dims=a.pca_dims, top_k=a.top_k)
     if a.params:
         raw = load_params(a.params)
     else:
-        raw = seeded_params(a.seed, a.gmm_k, a.pca_dims, a.num_classes, device, conf)
+        raw = seeded_params(a.seed, gmm_k, a.pca_dims, a.num_classes, device, conf)
     params = params_from_numpy(raw, device)
     engine = CompiledPipeline(build_serving_pipeline(params, conf), a.max_batch, device)
     engine.warmup((a.image_size, a.image_size, 3))

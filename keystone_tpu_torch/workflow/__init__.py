@@ -1,3 +1,9 @@
-from keystone_tpu_torch.workflow.pipeline import Gather, Pipeline, Transformer
+from keystone_tpu_torch.workflow.pipeline import (
+    Estimator,
+    Gather,
+    LabelEstimator,
+    Pipeline,
+    Transformer,
+)
 
-__all__ = ["Gather", "Pipeline", "Transformer"]
+__all__ = ["Estimator", "Gather", "LabelEstimator", "Pipeline", "Transformer"]

@@ -1,11 +1,14 @@
 """A lean serial pipeline core.
 
 Counterpart of ``keystone_tpu/workflow/pipeline.py`` (``Transformer``,
-``Pipeline.and_then``, ``Pipeline.gather``) and of
-``workflow/operators.py::GatherOperator``, without the graph optimizer,
-caches, executor pool or sharding: a pipeline here is a list of
-``nn.Module`` stages applied in order, and a gather runs its branches on
-the same input and concatenates their outputs on the last axis.
+``Estimator``, ``LabelEstimator``, ``Pipeline.and_then``,
+``Pipeline.gather``) and of ``workflow/operators.py::GatherOperator``,
+without the graph optimizer, caches, executor pool or sharding: a pipeline
+here is a list of ``nn.Module`` stages applied in order, and a gather runs
+its branches on the same input and concatenates their outputs on the last
+axis. ``and_then(estimator, data[, labels])`` fits eagerly: it applies the
+pipeline to ``data`` in batches, fits the estimator on the result and
+appends what it fitted.
 """
 
 from __future__ import annotations
@@ -14,6 +17,27 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from keystone_tpu_torch.config import resolve_device
+from keystone_tpu_torch.utils.stages import mark
+
+# Rows of fit data a pipeline prefix takes at once: a memory matter only,
+# every stage being row-independent where a prefix is applied in batches.
+FIT_BATCH = 64
+
+
+class Estimator:
+    """``fit(data) -> Transformer``."""
+
+    def fit(self, data) -> nn.Module:
+        raise NotImplementedError
+
+
+class LabelEstimator:
+    """``fit(data, labels) -> Transformer``."""
+
+    def fit(self, data, labels) -> nn.Module:
+        raise NotImplementedError
 
 
 class Transformer(nn.Module):
@@ -29,8 +53,24 @@ class Transformer(nn.Module):
     def forward(self, X):
         return self.apply_batch(X)
 
-    def and_then(self, nxt: "Transformer") -> "Pipeline":
-        return Pipeline([self]).and_then(nxt)
+    def and_then(self, nxt, *fit_args, **fit_kwargs) -> "Pipeline":
+        return Pipeline([self]).and_then(nxt, *fit_args, **fit_kwargs)
+
+    def apply_in_batches(self, data, batch_size: int = FIT_BATCH, device=None) -> torch.Tensor:
+        """This stage applied to ``data`` (a host array or a tensor) in
+        batches of ``batch_size`` rows on ``device``; the outputs are
+        written into one tensor there."""
+        device = resolve_device(device)
+        if not self.row_independent:
+            raise ValueError("a row-coupled stage cannot be applied in batches")
+        n = len(data)
+        out = None
+        for i in range(0, n, batch_size):
+            y = self(torch.as_tensor(data[i : i + batch_size]).to(device))
+            if out is None:
+                out = torch.empty((n, *y.shape[1:]), dtype=y.dtype, device=device)
+            out[i : i + len(y)] = y
+        return out
 
 
 class Pipeline(Transformer):
@@ -48,7 +88,25 @@ class Pipeline(Transformer):
             X = stage(X)
         return X
 
-    def and_then(self, nxt: nn.Module) -> "Pipeline":
+    def and_then(self, nxt, data=None, labels=None, *, device=None) -> "Pipeline":
+        """``and_then(module)`` appends a fitted stage.
+        ``and_then(estimator, data[, labels])`` fits the estimator on this
+        pipeline applied to ``data`` (in batches on ``device``) and appends
+        the fitted stage."""
+        if isinstance(nxt, (Estimator, LabelEstimator)):
+            if data is None:
+                raise TypeError("fitting an estimator needs its data")
+            if isinstance(nxt, LabelEstimator) != (labels is not None):
+                raise TypeError("labels go with a LabelEstimator, and only with one")
+            device = resolve_device(device)
+            features = self.apply_in_batches(data, device=device)
+            mark("apply the prefix to the fit data")
+            if labels is None:
+                nxt = nxt.fit(features)
+            else:
+                nxt = nxt.fit(features, torch.as_tensor(labels).to(device))
+        elif data is not None or labels is not None:
+            raise TypeError("fit data only goes with an estimator")
         return Pipeline([*self.stages, nxt])
 
     @staticmethod

@@ -13,6 +13,13 @@ and with variances near the 1e-4 floor. The SIFT front
 is held against itself on the CPU at the descriptor tolerance of
 tests/test_descriptors.py (rtol 2e-4, atol 2e-4), which cuDNN's TF32
 convolutions would miss.
+
+A small fit of the whole pipeline on the card is held against the same fit
+on the CPU: both draw the same random numbers, and differ only in rounding.
+PCA components up to sign at atol 1e-3 (rounding rotates components whose
+singular values are close), the GMM (means in the same signs) within 1e-2
+of each array's largest magnitude, and test scores within 1e-2 of the
+largest |score|.
 """
 
 import numpy as np
@@ -20,8 +27,11 @@ import pytest
 import torch
 
 import keystone_tpu_torch.ops.fisher_vector as fvo
+from keystone_tpu_torch.convert import params_to_numpy
+from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.nodes.images.external.fisher_vector import FisherVector
 from keystone_tpu_torch.ops.sift import dense_sift
+from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +131,34 @@ def test_sift_on_the_card_matches_the_cpu(cuda):
     want = dense_sift(torch.from_numpy(imgs))
     got = dense_sift(torch.from_numpy(imgs).to(cuda)).cpu()
     torch.testing.assert_close(got, want, **DESC_TOL)
+
+
+FIT_CONF = port.ImageNetSiftLcsFVConfig(gmm_k=4, pca_dims=8, synthetic_classes=8, top_k=3)
+
+
+def test_small_fit_on_the_card_matches_the_cpu(cuda):
+    train, test = ImageNetLoader.synthetic(n=64, num_classes=8, seed=3)
+    fitted = {dev: port.fit(FIT_CONF, train, 8, device=dev) for dev in (cuda, "cpu")}
+    got, want = (params_to_numpy(fitted[dev]) for dev in (cuda, "cpu"))
+    for br in ("sift", "lcs"):
+        gc, wc = got[f"{br}.pca.components"], want[f"{br}.pca.components"]
+        signs = np.sign((gc * wc).sum(axis=0))
+        np.testing.assert_allclose(gc * signs, wc, atol=1e-3)
+        np.testing.assert_allclose(got[f"{br}.pca.mean"], want[f"{br}.pca.mean"], rtol=1e-4, atol=1e-5)
+        for key, flip in (("weights", 1), ("means", signs), ("variances", 1)):
+            g, w = got[f"{br}.gmm.{key}"] * flip, want[f"{br}.gmm.{key}"]
+            assert np.abs(g - w).max() <= 1e-2 * np.abs(w).max(), (br, key)
+    X = torch.from_numpy(test.data[:32])
+    with torch.inference_mode():
+        s_card = fitted[cuda](X.to(cuda)).cpu()
+        s_cpu = fitted["cpu"](X)
+    assert (s_card - s_cpu).abs().max() <= 1e-2 * s_cpu.abs().max()
+
+
+def test_fit_launches_the_kernel_on_every_training_batch(cuda):
+    train, _ = ImageNetLoader.synthetic(n=150, num_classes=8, seed=4)
+    before = fvo.LAUNCHES
+    port.fit(FIT_CONF, train, 8, device=cuda)
+    # Three batches of the training set (64, 64, 22), two branches: the
+    # branch fits themselves encode nothing.
+    assert fvo.LAUNCHES - before == 2 * 3

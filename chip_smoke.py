@@ -36,10 +36,24 @@ script exits non-zero:
    last block's normal equations; then serves the fitted pipeline, carried through
    ``convert.py``, with ``CompiledPipeline`` for requests of 1 and 64
    images and checks its top-k against the fitted pipeline's direct call;
-7. one JSON line with every kernel's launches (on every path: serving,
-   fitting, serving what was fitted), error and times: ``ms`` is the
-   kernel's device time per call at B=64 (``torch.profiler``), ``call_ms``
-   the same call between CUDA events, host included.
+7. on the same images, the head solved streamed from host features
+   (``stream=True``) against the eager one on the same features: epoch
+   seconds and per-block prep, copy and update medians, double-buffered
+   and serialized (the two must give the same bits), device memory above
+   the baseline (below A's bytes plus the inverses'), objectives within
+   1e-3, W's distance, the last block's normal equations, test errors
+   within 0.02; then ``fit_streamed`` and ``score_streamed`` end to end
+   with checkpoints (stage seconds, save sizes and seconds, launches, plain
+   and ten-view TTA errors, TTA scores against the views scored
+   directly), and a solve stopped after 12 block updates by a hook here
+   and resumed from its checkpoints (W within 1e-6 of the uninterrupted);
+   the kernel phase also holds and times the kernel at the streamed
+   shapes (B=256, and B=250 at m=2,809);
+8. one JSON line with every kernel's launches (on every path: serving,
+   fitting, serving what was fitted, the streamed fit, plain and TTA
+   streamed scoring), error and times: ``ms`` is the kernel's device time
+   per call at B=64 (``torch.profiler``), ``call_ms`` the same call between
+   CUDA events, host included.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero
@@ -53,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest.mock import patch
 
 # Published float32 (non-tensor-core) and dense TF32 tensor-core peaks and
 # memory rate of one H100 SXM, NVIDIA's data sheet, at the full 700 W power
@@ -93,6 +108,7 @@ F32_UNIT_ROUNDOFF = 2.0**-24
 TRAIN_ERROR_MAX = 0.01
 
 FULL = dict(B=4, m=3721, d=64, k=256)
+TTA_M = 2809  # descriptors of a 224x224 view at step 4, bin 4
 REQUESTS = (1, 3, 16, 64)
 BUCKETS = (1, 4, 16, 64)  # the serving buckets those requests reach
 REPEATS = 5  # calls of each request size
@@ -499,11 +515,15 @@ def full_width_data(np):
     return train, test
 
 
-def check_last_block(torch, scored, conf, train) -> None:
+def check_last_block(torch, scored, conf, train, features=None) -> None:
     """The full-width solve, checked in float64 on the card. The last block
     visited in the last epoch solved its normal equations against the
     residual of the final W, so with A the training features centered at
-    their weighted mean, w the row weights, R = (Y - y_mean) - A W and
+    their weighted mean (``features``, the host array the solve saw, or
+    else the featurizer applied as the in-memory fit applies it: the
+    residual amplifies a change of the features' rounding by about the
+    gram's condition number, and the features' float32 rounding follows
+    the batch size), w the row weights, R = (Y - y_mean) - A W and
     R+ = R + A_l W_l, its W_l satisfies (A_l' w A_l + lam I) W_l = A_l' w R+.
     Prints that residual relative to |A_l' w R+|, W_l's distance from a
     float64 solve of the same normal equations relative to its norm, and
@@ -516,7 +536,10 @@ def check_last_block(torch, scored, conf, train) -> None:
     t0 = time.perf_counter()
     head = scored.stages[-1]
     with torch.inference_mode():
-        A = Pipeline(scored.stages[:-1]).apply_in_batches(train.data, device="cuda").double()
+        if features is None:
+            A = Pipeline(scored.stages[:-1]).apply_in_batches(train.data, device="cuda").double()
+        else:
+            A = torch.from_numpy(features).cuda().double()
         Y = ClassLabelIndicators(1000)(torch.from_numpy(train.labels).cuda()).double()
         w = BlockWeightedLeastSquaresEstimator(mixture_weight=conf.mixture_weight)._weights(Y)
         A -= (w @ A) / w.sum()
@@ -540,7 +563,7 @@ def check_last_block(torch, scored, conf, train) -> None:
         raise AssertionError(f"the last block's W does not solve its normal equations: {residual}, {dist}")
 
 
-def fit_full(torch) -> dict:
+def fit_full(torch, train, test) -> dict:
     import numpy as np
 
     import keystone_tpu_torch.ops.fisher_vector as fvo
@@ -560,11 +583,6 @@ def fit_full(torch) -> dict:
     conf = resolve_scale(ImageNetSiftLcsFVConfig(pca_dims=64), real=True)
     if (conf.gmm_k, conf.num_iters, conf.feature_dim) != (256, 3, 65536):
         raise AssertionError("the full-width settings are not the reference's real-data settings")
-    t0 = time.perf_counter()
-    train, test = full_width_data(np)
-    print(f"data: {len(train.data)} training and {len(test.data)} test images of "
-          f"{train.data.shape[1:]} over 1000 classes, made in {time.perf_counter() - t0:.3f} s (host)")
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fvo.LAUNCHES = 0  # the fit path's run starts here
@@ -625,7 +643,279 @@ def fit_full(torch) -> dict:
         print(f"fitted pipeline, request of {n}: {ms:.3f} ms, top-5 equal to the direct call: {same}")
         if not same:
             raise AssertionError("the served fitted pipeline disagrees with its direct call")
-    return {"launches": launches, "served_launches": served_launches}
+    return {"launches": launches, "served_launches": served_launches, "scored": scored, "conf": conf,
+            "objectives": objs, "test_errors": test_err, "fit_seconds": fit_s}
+
+
+# The streamed solve against the eager one on the same features: the same
+# updates in the same order, each inverse formed alone instead of in a
+# batch. Objectives per epoch within a relative 1e-3 and test errors within
+# 0.02 (10 of 512 images) of the eager fit's.
+STREAM_OBJECTIVE_RTOL = 1e-3
+STREAM_ERROR_TOL = 0.02
+# Streamed TTA scores against the pipeline applied to the views directly,
+# relative to the largest |score|: float32 products over other batch sizes.
+VIEW_RTOL = 1e-4
+# A solve stopped after this many block updates (epoch 2, block 4) and
+# resumed from its checkpoints, against the uninterrupted solve: the same
+# inverses and the same order, so W within a relative 1e-6.
+KILL_AFTER = 12
+RESUME_RTOL = 1e-6
+
+
+class Stop(Exception):
+    """Raised by the smoke's hook to stop a solve."""
+
+
+def host_features(torch, np, featurizer, images):
+    """``featurizer`` applied to host ``images`` through ``apply_batches``
+    in batches of 256, as ``fit_streamed`` applies it, assembled into one
+    host float32 array."""
+    from keystone_tpu_torch.loaders.stream import BatchIterator
+
+    out, off = None, 0
+    with torch.inference_mode():
+        for F, _ in featurizer.apply_batches(BatchIterator.from_arrays(images, None, 256), device="cuda"):
+            if out is None:
+                out = np.empty((len(images), F.shape[1]), dtype=np.float32)
+            out[off : off + len(F)] = F.cpu().numpy()
+            off += len(F)
+    return out
+
+
+def streamed_head(torch, A, targets, conf, **estimator_kw):
+    """The class-weighted head fitted streamed on host features ``A``:
+    (head, stage seconds, timer notes, host wall seconds, peak device bytes
+    above the memory held before the fit)."""
+    from keystone_tpu_torch.nodes.learning.block_least_squares import BlockWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.utils.stages import StageTimer
+
+    est = BlockWeightedLeastSquaresEstimator(
+        block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam,
+        mixture_weight=conf.mixture_weight, device="cuda", stream=True, **estimator_kw,
+    )
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StageTimer("cuda") as timer:
+        head = est.fit(A, targets)
+    secs = timer.seconds()  # synchronises
+    wall = time.perf_counter() - t0
+    return head, secs, timer.notes, wall, torch.cuda.max_memory_allocated() - base
+
+
+def epochs_line(secs, n) -> str:
+    return " / ".join(f"{secs[f'BCD epoch {e}']:.4f}" for e in range(1, n + 1))
+
+
+def block_time_medians(rows: list) -> dict:
+    """Median prep, copy and update milliseconds of the streamed solve's
+    blocks, the update apart for first visits (which form the inverse)."""
+    out = {key: statistics.median(r[key] for r in rows) for key in ("prep_ms", "copy_ms")}
+    for first, name in ((True, "first_update_ms"), (False, "update_ms")):
+        out[name] = statistics.median(r["update_ms"] for r in rows if r["first"] == first)
+    return out
+
+
+def blocks_line(notes) -> str:
+    m = block_time_medians(notes["streamed BCD blocks"])
+    return (f"prep {m['prep_ms']:.3f} ms (host), copy {m['copy_ms']:.3f} ms, update {m['update_ms']:.3f} ms, "
+            f"first-epoch update (with its inverse) {m['first_update_ms']:.3f} ms")
+
+
+def fit_streamed(torch, train, test, eager) -> dict:
+    """The streamed head against the eager one, ``fit_streamed`` and
+    ``score_streamed`` end to end, and a stopped and resumed solve, all at
+    full width on the full-width phase's images."""
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    import keystone_tpu_torch.linalg.bcd as bcd
+    import keystone_tpu_torch.nodes.learning.block_least_squares as bls
+    import keystone_tpu_torch.ops.fisher_vector as fvo
+    from keystone_tpu_torch.loaders.stream import BatchIterator
+    from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
+    from keystone_tpu_torch.utils.stages import StageTimer
+    from keystone_tpu_torch.workflow import Pipeline
+
+    conf, scored = eager["conf"], eager["scored"]
+    featurizer = Pipeline(scored.stages[:-1])
+    n_iters = conf.num_iters
+
+    # 1. The streamed solve against the eager one, on the same features.
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        # The eager fit's batches, so that the two solves see the same bits.
+        A = featurizer.apply_in_batches(train.data, device="cuda").cpu().numpy()
+    targets = ClassLabelIndicators(1000)(torch.from_numpy(train.labels).cuda())
+    print(f"training features on the host: {A.shape} float32, {A.nbytes / 2**30:.3f} GiB, "
+          f"{time.perf_counter() - t0:.3f} s (featurized as the eager fit does, copied back)")
+    # apply_batches's pinned double buffer against plain copies, in the same
+    # batches: 8 of them, so that each of the 4 staging buffers is reused.
+    some = train.data[: 8 * 256]
+    with torch.inference_mode():
+        direct = featurizer.apply_in_batches(some, batch_size=256, device="cuda").cpu().numpy()
+    staged = host_features(torch, np, featurizer, some)
+    same = np.array_equal(staged, direct)
+    print(f"apply_batches (pinned staging, copy stream) against apply_in_batches, {len(some)} images in "
+          f"batches of 256: equal bit for bit {same} (max abs difference {float(np.abs(staged - direct).max()):.3e}); "
+          f"batches of 64 against 256: max abs difference {float(np.abs(A[: len(some)] - direct).max()):.3e}")
+    if not same:
+        raise AssertionError("features staged through pinned memory differ from plain copies")
+    del some, direct, staged
+    head, secs, notes, wall, peak = streamed_head(torch, A, targets, conf)
+    eager_epochs = " / ".join(f"{eager['fit_seconds'][f'BCD epoch {e}']:.4f}" for e in range(1, n_iters + 1))
+    print(f"streamed solve: wall {wall:.3f} s; centering {secs['centering']:.4f} s; epochs (s, CUDA events) "
+          f"{epochs_line(secs, n_iters)} (eager: factor phase {eager['fit_seconds']['BCD factor phase']:.4f}, "
+          f"epochs {eager_epochs})")
+    print("streamed solve, per-block medians: " + blocks_line(notes))
+    inv_bytes = sum((e - s) ** 2 for s, e in head.blocks) * 4
+    bound = A.nbytes + inv_bytes
+    print(f"streamed solve: peak device memory above the pre-solve baseline {peak / 2**30:.3f} GiB "
+          f"(bound: A {A.nbytes / 2**30:.3f} + inverses {inv_bytes / 2**30:.3f} GiB)")
+    if peak >= bound:
+        raise AssertionError(f"the streamed solve held {peak} bytes on the card, not below {bound}")
+    serial = lambda *a, **k: bcd.block_coordinate_descent_streamed(*a, overlap=False, **k)  # noqa: E731
+    with patch.object(bls, "block_coordinate_descent_streamed", serial):
+        serial_head, serial_secs, serial_notes, serial_wall, _ = streamed_head(torch, A, targets, conf)
+    print(f"serialized (overlap=False): wall {serial_wall:.3f} s; epochs {epochs_line(serial_secs, n_iters)}; "
+          f"per-block medians: " + blocks_line(serial_notes))
+    same = torch.equal(serial_head.W, head.W) and torch.equal(serial_head.b, head.b)
+    print(f"serialized head equal to the double-buffered one bit for bit: {same}")
+    if not same:
+        raise AssertionError("the serialized streamed solve differs from the double-buffered one")
+    objs = [float(notes[f"objective after epoch {e}"]) for e in range(1, n_iters + 1)]
+    rel = [abs(o - w) / abs(w) for o, w in zip(objs, eager["objectives"])]
+    print("streamed objective after each epoch: " + ", ".join(f"{o:.6e}" for o in objs)
+          + " (relative to the eager fit's: " + ", ".join(f"{r:.3e}" for r in rel)
+          + f"; tol {STREAM_OBJECTIVE_RTOL})")
+    if not max(rel) <= STREAM_OBJECTIVE_RTOL:
+        raise AssertionError(f"the streamed objectives disagree with the eager ones: {rel}")
+    eager_head = scored.stages[-1]
+    w_dist = float(torch.linalg.norm(head.W - eager_head.W) / torch.linalg.norm(eager_head.W))
+    print(f"streamed W's distance from the eager W, relative to its norm: {w_dist:.3e}")
+    streamed_scored = featurizer.and_then(head)
+    check_last_block(torch, streamed_scored, conf, train, features=A)
+    test_err = pipe.evaluate(streamed_scored, conf, test, device="cuda")
+    print(f"streamed head: test top-5 {test_err[0]:.4f}, top-1 {test_err[1]:.4f} (eager: "
+          f"{eager['test_errors'][0]:.4f}, {eager['test_errors'][1]:.4f}; tol {STREAM_ERROR_TOL})")
+    if max(abs(a - b) for a, b in zip(test_err, eager["test_errors"])) > STREAM_ERROR_TOL:
+        raise AssertionError("the streamed head's test errors differ from the eager head's")
+
+    # 2. fit_streamed and score_streamed end to end, checkpointing.
+    saves = []
+
+    def timed_save(fn, kind):
+        def save(checkpoint_dir, *args):
+            t = time.perf_counter()
+            fn(checkpoint_dir, *args)
+            path = os.path.join(checkpoint_dir, bcd.SNAPSHOT if kind == "snapshot" else f"epoch_{args[0]}.pt")
+            saves.append((kind, time.perf_counter() - t, os.path.getsize(path)))
+        return save
+
+    with tempfile.TemporaryDirectory(prefix="keystone-smoke-") as ck:
+        sconf = replace(conf, stream=True, stream_batch=256, fit_sample_images=512, checkpoint_dir=ck)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patch.object(bcd, "_save_epoch", timed_save(bcd._save_epoch, "epoch")), \
+                patch.object(bcd, "_save_snapshot", timed_save(bcd._save_snapshot, "snapshot")):
+            fvo.LAUNCHES = 0  # the streamed fit's run starts here
+            with StageTimer("cuda") as timer:
+                streamed_fit = pipe.fit_streamed(
+                    sconf, train.data[: sconf.fit_sample_images],
+                    BatchIterator.from_arrays(train.data, train.labels, sconf.stream_batch), 1000, device="cuda",
+                )
+            fit_launches = fvo.LAUNCHES  # the streamed fit's run ends here
+        fit_secs = timer.seconds()
+        fit_wall = time.perf_counter() - t0
+        left = sorted(os.listdir(ck))
+    print(f"fit_streamed wall {fit_wall:.3f} s; stages (s, CUDA events): "
+          + ", ".join(f"{name} {v:.4f}" for name, v in fit_secs.items()) + f"; sum {sum(fit_secs.values()):.4f}")
+    print("fit_streamed per-block medians: " + blocks_line(timer.notes))
+    print(f"peak device memory of fit_streamed: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for kind in ("epoch", "snapshot"):
+        picked = [(t, b) for k, t, b in saves if k == kind]
+        print(f"checkpoint {kind} saves: {len(picked)}, "
+              + ", ".join(f"{b / 2**30:.3f} GiB in {t:.3f} s" for t, b in picked))
+    print(f"checkpoint directory after the solve: {left}")
+    if bcd.SNAPSHOT in left or left != [f"epoch_{e}.pt" for e in range(1, n_iters + 1)]:
+        raise AssertionError(f"the completed solve left {left}")
+    want = 2 * -(-len(train.data) // sconf.stream_batch)
+    print(f"fv launches of fit_streamed: {fit_launches} (2 branches x {want // 2} batches of {sconf.stream_batch})")
+    if fit_launches != want:
+        raise AssertionError(f"fit_streamed launched the fv kernel {fit_launches} times, want {want}")
+    # fit_streamed's features again, through the same batches of 256.
+    check_last_block(torch, streamed_fit, conf, train,
+                     features=host_features(torch, np, Pipeline(streamed_fit.stages[:-1]), train.data))
+
+    test_batches = BatchIterator.from_arrays(test.data, test.labels, sconf.stream_batch)
+    out = {"fit streamed": fit_launches}
+    errs = {}
+    for name, c in (("score streamed", sconf), ("score streamed tta", replace(sconf, augment=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fvo.LAUNCHES = 0  # this scoring path's run starts here
+        scores, labels = pipe.score_streamed(streamed_fit, c, test_batches, train.data.shape[1], device="cuda")
+        out[name] = fvo.LAUNCHES  # and ends here
+        seconds = time.perf_counter() - t0
+        if c.augment:
+            patcher, averager = pipe.build_tta(c, train.data.shape[1])
+            sub = max(1, c.stream_batch // patcher.num_views)
+            per_batch = [-(-len(X) // sub) for X, _ in test_batches]
+            want = 2 * sum(per_batch)
+            tta = scores
+        else:
+            want = 2 * len(list(test_batches))
+        topk = np.argsort(-scores, axis=1)[:, : conf.top_k]
+        errs[name] = (float(1 - (topk == labels[:, None]).any(axis=1).mean()), float((topk[:, 0] != labels).mean()))
+        print(f"{name}: {len(labels)} test images in {seconds:.3f} s (host clock), scores {scores.shape}, "
+              f"test top-5 {errs[name][0]:.4f}, top-1 {errs[name][1]:.4f}, fv launches {out[name]} (want {want})")
+        if out[name] != want or not np.isfinite(scores).all() or scores.shape != (len(test.data), 1000):
+            raise AssertionError(f"{name}: {out[name]} launches, scores {scores.shape}")
+    with torch.inference_mode():
+        views = patcher(torch.from_numpy(test.data[:64]).cuda())
+        direct = averager.average_scores(streamed_fit(views)).cpu().numpy()
+    view_err = float(np.abs(tta[:64] - direct).max())
+    scale = float(np.abs(direct).max())
+    print(f"TTA view accounting, first 64 test images ({views.shape[0]} views of {tuple(views.shape[1:3])}): "
+          f"max abs difference {view_err:.3e}, tol {VIEW_RTOL} x max|score| {scale:.4e}")
+    if view_err > VIEW_RTOL * scale:
+        raise AssertionError("streamed TTA scores disagree with the views scored directly")
+
+    # 3. A solve stopped mid-epoch and resumed from its checkpoints.
+    count = [0]
+    real_update = bcd._solve_update
+
+    def stopping_update(*args):
+        count[0] += 1
+        if count[0] > KILL_AFTER:
+            raise Stop
+        return real_update(*args)
+
+    with tempfile.TemporaryDirectory(prefix="keystone-smoke-") as ck:
+        with patch.object(bcd, "_solve_update", stopping_update):
+            try:
+                streamed_head(torch, A, targets, conf, checkpoint_dir=ck)
+            except Stop:
+                pass
+            else:
+                raise AssertionError("the hook did not stop the solve")
+        kept = sorted(os.listdir(ck))
+        resumed, resumed_secs, _, resume_wall, _ = streamed_head(torch, A, targets, conf, checkpoint_dir=ck)
+    rel_w = float(torch.linalg.norm(resumed.W - head.W) / torch.linalg.norm(head.W))
+    nb = len(head.blocks)
+    print(f"stopped after {KILL_AFTER} block updates (epoch {KILL_AFTER // nb + 1}, block {KILL_AFTER % nb}), leaving {kept}; "
+          f"resumed in {resume_wall:.3f} s (epochs {' / '.join(f'{v:.4f}' for k, v in resumed_secs.items() if k.startswith('BCD'))}); "
+          f"W's distance from the uninterrupted W relative to its norm {rel_w:.3e} (tol {RESUME_RTOL})")
+    if not rel_w <= RESUME_RTOL:
+        raise AssertionError("the resumed solve does not give the uninterrupted W")
+    return out
 
 
 def main() -> int:
@@ -666,7 +956,12 @@ def main() -> int:
     )
     check_repeat(torch, fvo)
     timings = {B: time_fv(torch, fvo, B, FULL["m"], d, k) for B in BUCKETS}
-    max_err = max(max_err, *(t["max_abs_err"] for t in timings.values()))
+    # The streamed paths' shapes: training batches of 256 images, and TTA
+    # sub-batches of 25 images' 10 views of 224x224 (m = 53² = 2,809).
+    streamed_shapes = {(256, FULL["m"]): None, (250, TTA_M): None}
+    for B, m in streamed_shapes:
+        streamed_shapes[B, m] = time_fv(torch, fvo, B, m, d, k)
+    max_err = max(max_err, *(t["max_abs_err"] for t in [*timings.values(), *streamed_shapes.values()]))
     timing = timings[BUCKETS[-1]]
 
     phase("serve")
@@ -676,7 +971,16 @@ def main() -> int:
     fit_reduced(torch)
 
     phase("fit, full width")
-    fitted = fit_full(torch)
+    import numpy as np
+
+    t0 = time.perf_counter()
+    train, test = full_width_data(np)
+    print(f"data: {len(train.data)} training and {len(test.data)} test images of "
+          f"{train.data.shape[1:]} over 1000 classes, made in {time.perf_counter() - t0:.3f} s (host)")
+    fitted = fit_full(torch, train, test)
+
+    phase("fit, streamed")
+    streamed = fit_streamed(torch, train, test, fitted)
 
     phase("kernels")
     kernels = [{
@@ -684,11 +988,12 @@ def main() -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/fisher_vector.cu",
         "replaces": "keystone_tpu/ops/fisher_vector_pallas.py:108",
-        "launches": served["launches"] + fitted["launches"] + fitted["served_launches"],
+        "launches": served["launches"] + fitted["launches"] + fitted["served_launches"] + sum(streamed.values()),
         "launches_by_path": {
             "serve": served["launches"],
             "fit": fitted["launches"],
             "serve fitted": fitted["served_launches"],
+            **streamed,
         },
         "max_abs_err": max_err,
         "ms": timing["ms"],
@@ -701,6 +1006,8 @@ def main() -> int:
         "ms_by_batch": {str(B): t["ms"] for B, t in timings.items()},
         "bound_ms_by_batch": {str(B): t["bound_ms"] for B, t in timings.items()},
         "f32_bound_ms": timing["f32_bound_ms"],
+        "ms_streamed_shapes": {f"B={B} m={m}": t["ms"] for (B, m), t in streamed_shapes.items()},
+        "bound_ms_streamed_shapes": {f"B={B} m={m}": t["bound_ms"] for (B, m), t in streamed_shapes.items()},
     }]
     if min(kernels[0]["launches_by_path"].values()) < 1:
         raise AssertionError("fisher_vector was not launched on every path")

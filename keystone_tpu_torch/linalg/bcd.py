@@ -1,7 +1,8 @@
 """Block coordinate descent over feature blocks, on one device.
 
-Counterpart of ``keystone_tpu/linalg/bcd.py::block_coordinate_descent``
-(``:485-620``) with the math of ``_local_ridge_gram`` (``:54-64``),
+Counterpart of ``keystone_tpu/linalg/bcd.py``: ``block_coordinate_descent``
+(``:485-620``), ``block_coordinate_descent_streamed`` (``:1003-1293``) and
+their checkpoints, with the math of ``_local_ridge_gram`` (``:54-64``),
 ``_batched_spd_inv`` (``:160-206``) and ``_local_solve_update``
 (``:82-90``). It solves
 
@@ -18,22 +19,53 @@ memory budget) each block's inverse is formed once, before the first epoch,
 by ``torch.linalg.cholesky`` and ``torch.cholesky_inverse`` batched over
 the blocks of equal width; an epoch is then gemms only. Without it each
 visit factors its gram again and solves with ``torch.cholesky_solve``.
-These are library calls, as the reference leaves them to XLA. Its TPU
-workarounds (chunked triangular solves, the fused ``lax.scan`` programs,
-donation, mesh folds, checkpoints) have no counterpart here.
+These are library calls, as the reference leaves them to XLA.
+
+The streamed solve keeps A in host memory, the caller's array, and sends
+one column block at a time to the device: a prefetch thread prepares the
+blocks (a contiguous copy, centered by ``col_center``) into pinned buffers
+two ahead, and block i+1's copy runs on a copy stream while block i updates
+(``utils/staging.py``). Its first epoch forms each block's inverse as it
+visits it (the reference's ``_first_epoch_update_fn``) and keeps it; later
+epochs reuse it.
+
+Checkpoints, in the port's own format (``torch.save`` to a temporary file,
+then ``os.replace``), bound to a fingerprint of the problem:
+
+- ``epoch_{N}.pt`` after every epoch (W and R), which the dense and the
+  streamed solve resume from each other;
+- in the streamed solve, ``bcd_stream.pt`` every ``checkpoint_every``
+  blocks (W, R, the inverses formed so far and the block cursor), deleted
+  when the solve completes. A resume takes whichever is further along (the
+  snapshot on a tie, for its inverses); a checkpoint of another problem is
+  ignored with a warning.
 
 An active ``StageTimer`` gets the "BCD factor phase" and each "BCD epoch"
-as stages, and the objective after each epoch as a note.
+as stages, the objective after each epoch as a note and, in the streamed
+solve, each block's prep, copy and update milliseconds.
 """
 
 from __future__ import annotations
 
+import os
+import re
+import tempfile
+import warnings
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.linalg.row_matrix import HBM_BUDGET_BYTES, solver_matmul
-from keystone_tpu_torch.utils.stages import mark, note
+from keystone_tpu_torch.loaders.stream import PREFETCH_DEPTH, PrefetchIterator
+from keystone_tpu_torch.utils.stages import active, elapsed_s, mark, note, stamp
+from keystone_tpu_torch.utils.staging import HostStager
+
+# Blocks between the streamed solve's mid-epoch snapshots (the reference's
+# config.checkpoint_every).
+CHECKPOINT_EVERY = 8
+SNAPSHOT = "bcd_stream.pt"
+_EPOCH_FILE = re.compile(r"epoch_(\d+)\.pt")
 
 
 def ridge_gram(a_b: torch.Tensor, aw: torch.Tensor, lam: float) -> torch.Tensor:
@@ -53,11 +85,117 @@ def _weighted(a_b, row_weights):
     return a_b if row_weights is None else a_b * row_weights[:, None]
 
 
+def _solve_update(a_b, aw, inv, R, w_b):
+    """One visit with the block's ridge inverse: (R, W_b) after it."""
+    r_plus = R + solver_matmul(a_b, w_b)
+    w_new = solver_matmul(inv, solver_matmul(aw.T, r_plus))
+    return r_plus - solver_matmul(a_b, w_new), w_new
+
+
+def _first_update(a_b, aw, R, w_b, lam):
+    """A visit that forms the block's ridge inverse first: (R, W_b, inverse).
+    The gram is freed once factored, so that at most two (b, b) temporaries
+    live beside the inverses."""
+    factor = torch.linalg.cholesky(ridge_gram(a_b, aw, lam))
+    inv = torch.cholesky_inverse(factor)
+    del factor
+    R, w_b = _solve_update(a_b, aw, inv, R, w_b)
+    return R, w_b, inv
+
+
 def objective(R: torch.Tensor, W: List[torch.Tensor], lam: float, row_weights=None):
     """Σ_i w_i ‖R_i‖² + λ‖W‖² as a 0-d tensor, for the residual R = B − A W."""
     rr = (R * R).sum(dim=1)
     data = rr.sum() if row_weights is None else (row_weights * rr).sum()
     return data + lam * sum((w * w).sum() for w in W)
+
+
+def _end_epoch(epoch, R, W, lam, row_weights, checkpoint_dir, fingerprint) -> None:
+    mark(f"BCD epoch {epoch + 1}")
+    note(f"objective after epoch {epoch + 1}", lambda: objective(R, W, lam, row_weights))
+    if checkpoint_dir is not None:
+        _save_epoch(checkpoint_dir, epoch + 1, W, R, fingerprint)
+
+
+# -- checkpoints ---------------------------------------------------------
+
+
+def _fingerprint(n, d, k, block_size, lam, weighted, a_probe, B) -> dict:
+    """The problem a checkpoint belongs to (the reference's
+    ``_make_fingerprint`` without its mesh keys). The probes sum the first
+    and last rows of the matrix the solve sees (A after centering) and of B."""
+    return {
+        "n": int(n), "d": int(d), "k": int(k), "block_size": int(block_size),
+        "lam": float(lam), "weighted": bool(weighted), "a_dtype": "float32",
+        "a_probe": float(a_probe), "b_probe": float(B[0].sum() + B[-1].sum()),
+    }
+
+
+def _same_problem(saved, expected) -> bool:
+    if set(saved) != set(expected):
+        return False
+    for key, val in expected.items():
+        if isinstance(val, float):
+            if abs(float(saved[key]) - val) > 1e-3 * max(1.0, abs(val)):
+                return False
+        elif saved[key] != val:
+            return False
+    return True
+
+
+def _atomic_save(obj, path: str) -> None:
+    """``obj`` written whole at ``path`` or not at all."""
+    folder = os.path.dirname(path)
+    os.makedirs(folder, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
+    os.close(fd)
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def _load(path: str, fingerprint: dict, device):
+    """The checkpoint at ``path`` if it belongs to this problem, else None
+    (with a warning)."""
+    state = torch.load(path, map_location=device, weights_only=True)
+    if not _same_problem(state["fingerprint"], fingerprint):
+        warnings.warn(f"checkpoint {path} holds a different solve; ignoring it")
+        return None
+    return state
+
+
+def _latest_epoch(checkpoint_dir: str, fingerprint: dict, device):
+    if not os.path.isdir(checkpoint_dir):
+        return None
+    epochs = [int(m.group(1)) for m in map(_EPOCH_FILE.fullmatch, os.listdir(checkpoint_dir)) if m]
+    if not epochs:
+        return None
+    return _load(os.path.join(checkpoint_dir, f"epoch_{max(epochs)}.pt"), fingerprint, device)
+
+
+def _save_epoch(checkpoint_dir, epoch, W, R, fingerprint) -> None:
+    _atomic_save(
+        {"epoch": epoch, "W": [w.cpu() for w in W], "R": R.cpu(), "fingerprint": fingerprint},
+        os.path.join(checkpoint_dir, f"epoch_{epoch}.pt"),
+    )
+
+
+def _save_snapshot(checkpoint_dir, fingerprint, epoch, block, W, R, invs) -> None:
+    """``block`` blocks of ``epoch`` are done."""
+    _atomic_save(
+        {
+            "fingerprint": fingerprint, "epoch": int(epoch), "block": int(block),
+            "W": [w.cpu() for w in W], "R": R.cpu(),
+            "invs": {i: v.cpu() for i, v in enumerate(invs) if v is not None},
+        },
+        os.path.join(checkpoint_dir, SNAPSHOT),
+    )
+
+
+# -- dense ----------------------------------------------------------------
 
 
 def block_coordinate_descent(
@@ -68,10 +206,12 @@ def block_coordinate_descent(
     lam: float = 0.0,
     row_weights: Optional[torch.Tensor] = None,
     cache_grams: Optional[bool] = None,
+    checkpoint_dir: Optional[str] = None,
 ) -> Tuple[List[torch.Tensor], List[Tuple[int, int]]]:
     """Returns (per-block weights, block column ranges). ``A`` (n, d) and
     ``B`` (n, k) are float32 on one device; ``A`` is only read (its column
-    blocks are views)."""
+    blocks are views). With ``checkpoint_dir`` the solve resumes from the
+    latest epoch saved there for this problem and saves every epoch."""
     n, d = A.shape
     k = B.shape[1]
     if B.shape[0] != n:
@@ -82,9 +222,16 @@ def block_coordinate_descent(
         cache_grams = num_iters > 1 and factor_bytes < HBM_BUDGET_BYTES // 4
     W = [A.new_zeros((e - s, k)) for s, e in blocks]
     R = B.clone()
+    start_epoch, fingerprint = 0, None
+    if checkpoint_dir is not None:
+        a_probe = float(A[0].sum() + A[-1].sum())
+        fingerprint = _fingerprint(n, d, k, block_size, lam, row_weights is not None, a_probe, B)
+        state = _latest_epoch(checkpoint_dir, fingerprint, A.device)
+        if state is not None:
+            start_epoch, W, R = state["epoch"], list(state["W"]), state["R"]
 
     invs = None
-    if cache_grams and num_iters > 0:
+    if cache_grams and start_epoch < num_iters:
         invs = []
         # Equal-width blocks are factored as one batch; a ragged last block
         # on its own.
@@ -99,18 +246,156 @@ def block_coordinate_descent(
         invs = [inv for _, inv in sorted(invs, key=lambda t: t[0])]
         mark("BCD factor phase")
 
-    for epoch in range(num_iters):
+    for epoch in range(start_epoch, num_iters):
         for i, (s, e) in enumerate(blocks):
             a_b = A[:, s:e]
             aw = _weighted(a_b, row_weights)
-            r_plus = R + solver_matmul(a_b, W[i])
-            rhs = solver_matmul(aw.T, r_plus)
             if invs is not None:
-                W[i] = solver_matmul(invs[i], rhs)
+                R, W[i] = _solve_update(a_b, aw, invs[i], R, W[i])
             else:
+                r_plus = R + solver_matmul(a_b, W[i])
+                rhs = solver_matmul(aw.T, r_plus)
                 W[i] = torch.cholesky_solve(rhs, torch.linalg.cholesky(ridge_gram(a_b, aw, lam)))
-            R = r_plus - solver_matmul(a_b, W[i])
-        mark(f"BCD epoch {epoch + 1}")
-        note(f"objective after epoch {epoch + 1}",
-             lambda: objective(R, W, lam, row_weights))
+                R = r_plus - solver_matmul(a_b, W[i])
+        _end_epoch(epoch, R, W, lam, row_weights, checkpoint_dir, fingerprint)
     return W, blocks
+
+
+# -- streamed -------------------------------------------------------------
+
+
+def host_matrix(A) -> torch.Tensor:
+    """``A`` (a host array or a CPU tensor) as a float32 CPU tensor, without
+    a copy when it is float32 already."""
+    if isinstance(A, torch.Tensor):
+        if A.device.type != "cpu":
+            raise ValueError(f"a streamed solve takes A in host memory, not on {A.device}")
+        return A.to(torch.float32)
+    arr = np.asarray(A, dtype=np.float32)
+    with warnings.catch_warnings():
+        # Read-only arrays are welcome: nothing here writes to A.
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(arr)
+
+
+def block_coordinate_descent_streamed(
+    A_host,
+    B: torch.Tensor,
+    block_size: int,
+    num_iters: int,
+    lam: float = 0.0,
+    row_weights: Optional[torch.Tensor] = None,
+    checkpoint_dir: Optional[str] = None,
+    col_center=None,
+    checkpoint_every: int = CHECKPOINT_EVERY,
+    overlap: bool = True,
+) -> Tuple[List[torch.Tensor], List[Tuple[int, int]]]:
+    """The solve of ``block_coordinate_descent`` with ``A_host`` (n, d) left
+    in host memory, uncopied and unmodified, and B, W, R, the row weights and
+    the inverses on ``B``'s device. ``col_center`` (d,) is subtracted from
+    each block as it is prepared. ``overlap=False`` prepares, copies and
+    updates one block at a time, waiting for each, to measure what the
+    double buffer buys; the two give the same bits."""
+    A = host_matrix(A_host)
+    n, d = A.shape
+    if B.shape[0] != n:
+        raise ValueError(f"A rows ({n}) must match B rows ({B.shape[0]})")
+    device, k = B.device, B.shape[1]
+    center = None if col_center is None else torch.as_tensor(col_center, dtype=torch.float32).cpu()
+    blocks = [(s, min(s + block_size, d)) for s in range(0, d, block_size)]
+    nb = len(blocks)
+
+    W = [B.new_zeros((e - s, k)) for s, e in blocks]
+    R = B.clone()
+    invs: List[Optional[torch.Tensor]] = [None] * nb
+    start_epoch = start_block = 0
+    fingerprint = None
+    if checkpoint_dir is not None:
+        shift = 0.0 if center is None else 2.0 * float(center.sum())
+        a_probe = float(A[0].sum() + A[-1].sum()) - shift
+        fingerprint = _fingerprint(n, d, k, block_size, lam, row_weights is not None, a_probe, B)
+        state = _latest_epoch(checkpoint_dir, fingerprint, device)
+        if state is not None:
+            start_epoch, W, R = state["epoch"], list(state["W"]), state["R"]
+        snap_path = os.path.join(checkpoint_dir, SNAPSHOT)
+        snap = _load(snap_path, fingerprint, device) if os.path.exists(snap_path) else None
+        if snap is not None:
+            epoch, block = snap["epoch"], snap["block"]
+            if block >= nb:  # the snapshot landed on an epoch boundary
+                epoch, block = epoch + 1, 0
+            if (epoch, block) >= (start_epoch, 0):
+                start_epoch, start_block = epoch, block
+                W, R = list(snap["W"]), snap["R"]
+                for i, inv in snap["invs"].items():
+                    invs[int(i)] = inv
+    visits = [
+        (epoch, i)
+        for epoch in range(start_epoch, num_iters)
+        for i in range(start_block if epoch == start_epoch else 0, nb)
+    ]
+
+    timer = active()
+    stager = HostStager(device, buffers=PREFETCH_DEPTH + 2, timed=timer is not None)
+
+    def prep(i: int):
+        s, e = blocks[i]
+        if center is None:
+            write = lambda out: out.copy_(A[:, s:e])  # noqa: E731
+        else:
+            write = lambda out: torch.sub(A[:, s:e], center[s:e], out=out)  # noqa: E731
+        return stager.fill((n, e - s), torch.float32, write)
+
+    src = PrefetchIterator((prep(i) for _, i in visits)) if overlap and visits else None
+    times = []
+    try:
+        nxt = stager.upload(next(src)) if src is not None else None
+        for j, (epoch, i) in enumerate(visits):
+            if src is not None:
+                cur = nxt
+                stager.reclaim()
+                if j + 1 < len(visits):
+                    nxt = stager.upload(next(src))
+            else:
+                cur = stager.upload(prep(i))
+            a_b = stager.ready(cur)
+            first = invs[i] is None
+            t0 = stamp(device)
+            aw = _weighted(a_b, row_weights)
+            if first:
+                R, W[i], invs[i] = _first_update(a_b, aw, R, W[i], lam)
+            else:
+                R, W[i] = _solve_update(a_b, aw, invs[i], R, W[i])
+            del aw  # a block's bytes, freed before the next block is allocated
+            if timer is not None:
+                times.append((epoch, i, first, cur._replace(tensor=None), t0, stamp(device)))
+            if src is None:
+                stager.reclaim()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            done = j + 1
+            if (
+                checkpoint_dir is not None and checkpoint_every > 0
+                and done % checkpoint_every == 0 and done < len(visits)
+            ):
+                _save_snapshot(checkpoint_dir, fingerprint, epoch, i + 1, W, R, invs)
+            if i == nb - 1:
+                _end_epoch(epoch, R, W, lam, row_weights, checkpoint_dir, fingerprint)
+    finally:
+        stager.close()
+        if src is not None:
+            src.close()
+    if timer is not None:
+        note("streamed BCD blocks", lambda: _block_times(device, times))
+    if checkpoint_dir is not None and os.path.exists(os.path.join(checkpoint_dir, SNAPSHOT)):
+        os.unlink(os.path.join(checkpoint_dir, SNAPSHOT))
+    return W, blocks
+
+
+def _block_times(device, times) -> list:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return [
+        {"epoch": epoch, "block": i, "first": first, "prep_ms": 1e3 * up.prep_s,
+         "copy_ms": up.copy_ms(), "update_ms": 1e3 * elapsed_s(t0, t1)}
+        for epoch, i, first, up, t0, t1 in times
+    ]

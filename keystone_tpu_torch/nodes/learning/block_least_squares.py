@@ -10,12 +10,20 @@ Counterpart of ``keystone_tpu/nodes/learning/block_least_squares.py``:
 - ``BlockLeastSquaresEstimator.fit``, the dense path: features and labels
   centered (weighted means when rows are weighted), block coordinate
   descent (``linalg/bcd.py``), and the intercept ``b = ȳ_w − x̄_wᵀW``;
+- ``BlockLeastSquaresEstimator.fit`` streamed (``stream``, ``:173-221``):
+  the features stay in host memory, the caller's array, uncopied; the
+  feature means come from a host matvec and are subtracted from each block
+  as it is prepared (``col_center``), the label means from the labels on
+  the device, and ``linalg/bcd.py::block_coordinate_descent_streamed``
+  solves. ``stream=None`` streams when the features' bytes exceed half the
+  memory budget (6 GiB), as the reference's auto rule does;
+- ``checkpoint_dir``: epoch checkpoints of either solve, and the streamed
+  solve's mid-epoch snapshots, resumed by a later fit of the same problem;
 - ``BlockWeightedLeastSquaresEstimator``: class-rebalanced row weights,
   ``(1 − mixture_weight) + mixture_weight · n / (k · n_c)`` for a row of
   class c.
 
-Sparse input, streaming, checkpoints and the model-parallel ring are not
-ported.
+Sparse input and the model-parallel ring are not ported.
 """
 
 from __future__ import annotations
@@ -23,10 +31,15 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.config import as_input, default_dtype, resolve_device
-from keystone_tpu_torch.linalg.bcd import block_coordinate_descent
+from keystone_tpu_torch.linalg.bcd import (
+    block_coordinate_descent,
+    block_coordinate_descent_streamed,
+    host_matrix,
+)
 from keystone_tpu_torch.linalg.row_matrix import (
     HBM_BUDGET_BYTES,
     solver_matmul,
@@ -74,21 +87,32 @@ def resolve_block_size(block_size, d: int, device) -> int:
 
 
 class BlockLeastSquaresEstimator(LabelEstimator):
-    """``fit`` runs on the device of the data tensor it is given; host
-    arrays go to ``device`` (``cuda`` unless named)."""
+    """The dense ``fit`` runs on the device of the data tensor it is given;
+    host arrays go to ``device`` (``cuda`` unless named). The streamed fit
+    keeps host features on the host and solves on ``device``."""
 
     def __init__(self, block_size="auto", num_iters: int = 1, lam: float = 0.0,
-                 fit_intercept: bool = True, device=None):
+                 fit_intercept: bool = True, device=None,
+                 checkpoint_dir: Optional[str] = None, stream: Optional[bool] = None):
         self.block_size = block_size
         self.num_iters = num_iters
         self.lam = lam
         self.fit_intercept = fit_intercept
         self.device = device
+        self.checkpoint_dir = checkpoint_dir
+        self.stream = stream
 
     def _weights(self, Y: torch.Tensor) -> Optional[torch.Tensor]:
         return None
 
     def fit(self, data, labels) -> BlockLinearMapper:
+        stream = self.stream
+        if stream is None:
+            on_host = not isinstance(data, torch.Tensor) or data.device.type == "cpu"
+            itemsize = torch.finfo(default_dtype).bits // 8
+            stream = on_host and math.prod(np.shape(data)) * itemsize > HBM_BUDGET_BYTES // 2
+        if stream:
+            return self._fit_streamed(data, labels)
         X = as_input(data, self.device)
         Y = as_input(labels, X.device).to(X.device)
         weights = self._weights(Y)
@@ -110,16 +134,49 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             num_iters=self.num_iters,
             lam=self.lam,
             row_weights=weights,
+            checkpoint_dir=self.checkpoint_dir,
         )
         W = torch.cat(W_blocks, dim=0)
         b = None if y_mean is None else y_mean - solver_matmul(x_mean[None, :], W)[0]
         return BlockLinearMapper(W, blocks, b, device=W.device)
 
+    def _fit_streamed(self, data, labels) -> BlockLinearMapper:
+        X = host_matrix(data)
+        device = resolve_device(self.device)
+        Y = as_input(labels, device).to(device)
+        weights = self._weights(Y)
+        x_mean = y_mean = None
+        if self.fit_intercept:
+            # The dense path's means: x̄ on the host, as a matvec (no
+            # X-sized temporary); ȳ on the device from the placed labels.
+            if weights is None:
+                x_mean = X.mean(dim=0)
+                y_mean = Y.sum(dim=0) / Y.shape[0]
+            else:
+                w_host = weights.cpu()
+                x_mean = torch.mv(X.T, w_host) / max(float(w_host.sum()), 1e-12)
+                y_mean = weighted_col_sums(Y, weights) / torch.clamp_min(weights.sum(), 1e-12)
+            Y = Y - y_mean
+            mark("centering")
+        W_blocks, blocks = block_coordinate_descent_streamed(
+            X, Y,
+            block_size=resolve_block_size(self.block_size, X.shape[1], device),
+            num_iters=self.num_iters,
+            lam=self.lam,
+            row_weights=weights,
+            checkpoint_dir=self.checkpoint_dir,
+            col_center=x_mean,
+        )
+        W = torch.cat(W_blocks, dim=0)
+        b = None if y_mean is None else y_mean - solver_matmul(x_mean.to(device)[None, :], W)[0]
+        return BlockLinearMapper(W, blocks, b, device=device)
+
 
 class BlockWeightedLeastSquaresEstimator(BlockLeastSquaresEstimator):
     def __init__(self, block_size="auto", num_iters: int = 1, lam: float = 0.0,
-                 mixture_weight: float = 0.5, fit_intercept: bool = True, device=None):
-        super().__init__(block_size, num_iters, lam, fit_intercept, device)
+                 mixture_weight: float = 0.5, fit_intercept: bool = True, device=None,
+                 checkpoint_dir: Optional[str] = None, stream: Optional[bool] = None):
+        super().__init__(block_size, num_iters, lam, fit_intercept, device, checkpoint_dir, stream)
         self.mixture_weight = mixture_weight
 
     def _weights(self, Y: torch.Tensor) -> Optional[torch.Tensor]:

@@ -5,8 +5,7 @@ Counterpart of ``keystone_tpu/pipelines/images/imagenet_sift_lcs_fv.py``:
     images (n, H, W, 3) ─┬─ GrayScaler → dense SIFT (128-d) → PCA → FisherVector → SignedHellinger → L2 ─┐
                          └─ LCS (96-d)                       → PCA → FisherVector → SignedHellinger → L2 ─┴─ gather → BlockLinearMapper → TopK
 
-Fitting (the reference's non-streamed ``run``, without test-time
-augmentation) goes in two steps:
+Fitting (the reference's ``run``) goes in two steps:
 
 - ``fit_featurizer``: each branch's PCA and GMM on a descriptor sample of
   the training images (branch seeds ``seed`` and ``seed + 1``);
@@ -15,14 +14,25 @@ augmentation) goes in two steps:
   labels)``.
 
 ``run`` fits on synthetic images and scores the test split; ``evaluate``
-gives its top-k and top-1 errors. Full width, as ``resolve_scale`` sets it
-for real data: ``pca_dims=64``, ``gmm_k=256``, so 2·(2·256·64) = 65,536
-features, solved in 3 epochs over 8 blocks of 8,192 on the card.
+gives its top-k and top-1 errors. With ``stream`` (the reference's
+``run_streamed``, ``:167-338``) the featurizer is fitted on the first
+``fit_sample_images`` training images (``fit_streamed``), the training
+set is featurized in batches of ``stream_batch`` through
+``apply_batches``, only its features are kept, on the host, and the head
+is solved streamed from there; ``score_streamed`` scores the test set
+batch by batch. With ``augment`` each test image is scored as the average
+over its ten center and corner views (``CenterCornerPatcher``, crop 7/8 of
+the side unless ``augment_crop``), on either path. Full width, as
+``resolve_scale`` sets it for real data: ``pca_dims=64``, ``gmm_k=256``,
+so 2·(2·256·64) = 65,536 features, solved in 3 epochs over 8 blocks of
+8,192 on the card.
 
 Run ``python -m keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv``
 to serve synthetic requests with seeded random parameters, or pass
 ``--params file.npz`` with arrays under the keys ``convert.py`` documents;
-``--fit`` fits on synthetic images instead and prints the errors.
+``--fit`` fits on synthetic images instead and prints the errors;
+``--stream``, ``--augment`` and ``--checkpoint-dir`` set the fit's
+options (the first two imply ``--fit``).
 """
 
 from __future__ import annotations
@@ -37,10 +47,13 @@ import torch
 
 from keystone_tpu_torch.config import resolve_device
 from keystone_tpu_torch.convert import BRANCHES, ServingParams, params_from_numpy, params_to_numpy
+from keystone_tpu_torch.evaluation.augmented import AugmentedExamplesEvaluator
 from keystone_tpu_torch.loaders.imagenet import ImageNetLoader, LabeledData
+from keystone_tpu_torch.loaders.stream import BatchIterator
 from keystone_tpu_torch.nodes.images.external.fisher_vector import fit_fisher_featurizer
 from keystone_tpu_torch.nodes.images.external.sift import SIFTExtractor
 from keystone_tpu_torch.nodes.images.lcs import LCSExtractor
+from keystone_tpu_torch.nodes.images.patches import CenterCornerPatcher
 from keystone_tpu_torch.nodes.images.pixels import GrayScaler
 from keystone_tpu_torch.nodes.learning.block_least_squares import (
     BlockWeightedLeastSquaresEstimator,
@@ -50,7 +63,7 @@ from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
 from keystone_tpu_torch.utils.stages import mark
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import Pipeline, Transformer
 from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
 # Feature block width of the head: the reference's resolve_block_size cap on
@@ -75,9 +88,21 @@ class ImageNetSiftLcsFVConfig:
     # None = resolve_scale: 3 epochs for real data, 2 for synthetic.
     num_iters: Optional[int] = None
     top_k: int = 5
+    # Test-time augmentation: each test image scored as the mean over its
+    # center and corner crops, each also flipped; 0 = 7/8 of the side.
+    augment: bool = False
+    augment_crop: int = 0
     seed: int = 0
     synthetic_n: int = 512
     synthetic_classes: int = 16
+    # Out-of-core fit: the featurizer on a sample of images, the training
+    # set featurized batch by batch, features kept on the host and the
+    # head solved from there.
+    stream: bool = False
+    stream_batch: int = 256
+    fit_sample_images: int = 512
+    # Where the head's solve checkpoints and resumes (None: nowhere).
+    checkpoint_dir: Optional[str] = None
 
     @property
     def feature_dim(self) -> int:
@@ -209,6 +234,7 @@ def fit_head(featurizer: Pipeline, conf: ImageNetSiftLcsFVConfig, train_images,
         num_iters=conf.num_iters,
         lam=conf.lam,
         mixture_weight=conf.mixture_weight,
+        checkpoint_dir=conf.checkpoint_dir,
     )
     return featurizer.and_then(solver, train_images, targets, device=device)
 
@@ -224,24 +250,163 @@ def fit(conf: ImageNetSiftLcsFVConfig, train: LabeledData, num_classes: int,
     return fit_head(featurizer, conf, images, train.labels, num_classes, device)
 
 
+def _errors(topk: np.ndarray, labels: np.ndarray):
+    correct = (topk == labels[:, None]).any(axis=1)
+    return float(1.0 - correct.mean()), float((topk[:, 0] != labels).mean())
+
+
 def evaluate(scored: Pipeline, conf: ImageNetSiftLcsFVConfig, test: LabeledData, device=None):
-    """(top-k error, top-1 error) of ``scored`` on ``test``."""
+    """(top-k error, top-1 error) of ``scored`` on ``test``, with the views
+    of ``build_tta`` averaged when ``conf.augment``."""
     with torch.inference_mode():
-        topk = (
-            scored.and_then(TopKClassifier(conf.top_k))
-            .apply_in_batches(test.data, device=device)
-            .cpu().numpy()
+        if conf.augment:
+            patcher, averager = build_tta(conf, test.data.shape[1])
+            views = scored.apply_in_batches(patcher(torch.as_tensor(test.data)), device=device)
+            scores = averager.average_scores(views)
+        else:
+            scores = scored.apply_in_batches(test.data, device=device)
+        topk = TopKClassifier(conf.top_k)(scores).cpu().numpy()
+    return _errors(topk, test.labels)
+
+
+def build_tta(conf: ImageNetSiftLcsFVConfig, side: int):
+    """The reference's ``_build_tta``: center and four corner crops, each
+    also flipped (10 views), of 7/8 of the image side unless
+    ``augment_crop``; and the evaluator that averages their scores."""
+    patcher = CenterCornerPatcher(crop_size=conf.augment_crop or (side * 7) // 8, with_flips=True)
+    return patcher, AugmentedExamplesEvaluator(patcher.num_views)
+
+
+class ViewAveragedScores(Transformer):
+    """images → each image's scores averaged over the patcher's views,
+    computed ``images_at_once`` images (their views) at a time so that the
+    view tensor stays bounded. Each image's output depends on it alone."""
+
+    def __init__(self, scored: Pipeline, patcher: CenterCornerPatcher,
+                 averager: AugmentedExamplesEvaluator, images_at_once: int):
+        super().__init__()
+        self.scored = scored
+        self.patcher = patcher
+        self.averager = averager
+        self.images_at_once = images_at_once
+
+    def apply_batch(self, X):
+        sub = self.images_at_once
+        views = torch.cat([self.scored(self.patcher(X[i : i + sub])) for i in range(0, len(X), sub)])
+        return self.averager.average_scores(views)
+
+
+def fit_streamed(conf: ImageNetSiftLcsFVConfig, fit_sample, train_batches, num_classes: int,
+                 device=None) -> Pipeline:
+    """The reference's streamed fit: the featurizer fitted on
+    ``fit_sample`` images, the ``(images, labels)`` batches of
+    ``train_batches`` featurized through ``apply_batches`` and kept only as
+    host features, assembled in place into one host matrix, and the head
+    solved streamed from it (checkpointed in ``conf.checkpoint_dir``).
+    Returns images → scores."""
+    conf = resolve_scale(conf)
+    device = resolve_device(device)
+    featurizer = fit_featurizer(conf, fit_sample, device)
+    feats, labels = [], []
+    with torch.inference_mode():
+        for F, y in featurizer.apply_batches(train_batches, device=device):
+            if y is None:
+                raise ValueError("the training stream must give (images, labels) batches")
+            feats.append(F.cpu().numpy())
+            labels.append(np.asarray(y))
+    if not feats:
+        raise ValueError("the training stream produced no batches")
+    mark("featurizing the training set")
+    # Assembled in place, each batch freed as it lands: the host holds the
+    # feature matrix and one batch, not twice the matrix.
+    A = np.empty((sum(len(f) for f in feats), feats[0].shape[1]), dtype=np.float32)
+    off = 0
+    while feats:
+        f = feats.pop(0)
+        A[off : off + len(f)] = f
+        off += len(f)
+    mark("assembling the host features")
+    targets = ClassLabelIndicators(num_classes)(torch.from_numpy(np.concatenate(labels)).to(device))
+    solver = BlockWeightedLeastSquaresEstimator(
+        block_size=conf.block_size,
+        num_iters=conf.num_iters,
+        lam=conf.lam,
+        mixture_weight=conf.mixture_weight,
+        device=device,
+        checkpoint_dir=conf.checkpoint_dir,
+        stream=True,
+    )
+    return featurizer.and_then(solver.fit(A, targets))
+
+
+def score_streamed(scored: Pipeline, conf: ImageNetSiftLcsFVConfig, test_batches, side: int,
+                   device=None):
+    """(scores, labels) of the ``(images, labels)`` batches of
+    ``test_batches`` as host arrays: each batch through ``apply_batches``
+    plainly or, with ``conf.augment``, as the averages of its images' views
+    (side × side images), scored ``max(1, stream_batch // views)`` images at
+    a time."""
+    device = resolve_device(device)
+    if conf.augment:
+        patcher, averager = build_tta(conf, side)
+        scored = ViewAveragedScores(
+            scored, patcher, averager, max(1, conf.stream_batch // patcher.num_views)
         )
-    correct = (topk == test.labels[:, None]).any(axis=1)
-    return float(1.0 - correct.mean()), float((topk[:, 0] != test.labels).mean())
+    scores, labels = [], []
+    with torch.inference_mode():
+        for s, y in scored.apply_batches(test_batches, device=device):
+            scores.append(s.cpu().numpy())
+            labels.append(np.asarray(y))
+    return np.concatenate(scores), np.concatenate(labels)
+
+
+def _result(conf, top_k_error, top1, seconds, tail="") -> dict:
+    return {
+        "top_k_error": top_k_error,
+        "top_1_error": top1,
+        "feature_dim": conf.feature_dim,
+        "seconds": seconds,
+        "summary": f"top-{conf.top_k} error: {top_k_error:.4f} | top-1 error: {top1:.4f}{tail}",
+    }
+
+
+def run_streamed(conf: ImageNetSiftLcsFVConfig, device=None, save_params: Optional[str] = None) -> dict:
+    """The reference's ``run_streamed`` on synthetic images: ``fit_streamed``
+    on batches of ``stream_batch`` training images, then ``score_streamed``
+    on the test split; its result keys, ``num_views`` with ``augment``."""
+    conf = resolve_scale(conf)
+    device = resolve_device(device)
+    train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes)
+    t0 = time.perf_counter()
+    scored = fit_streamed(
+        conf, train.data[: conf.fit_sample_images],
+        BatchIterator.from_arrays(train.data, train.labels, conf.stream_batch),
+        conf.synthetic_classes, device,
+    )
+    scores, labels = score_streamed(
+        scored, conf, BatchIterator.from_arrays(test.data, test.labels, conf.stream_batch),
+        train.data.shape[1], device,
+    )
+    with torch.inference_mode():
+        topk = TopKClassifier(conf.top_k)(torch.from_numpy(scores)).numpy()
+    top_k_error, top1 = _errors(topk, labels)
+    elapsed = time.perf_counter() - t0
+    if save_params:
+        np.savez(save_params, **params_to_numpy(scored))
+    if not conf.augment:
+        return _result(conf, top_k_error, top1, elapsed, " (streamed)")
+    views = build_tta(conf, train.data.shape[1])[0].num_views
+    return {**_result(conf, top_k_error, top1, elapsed, f" (streamed, TTA x{views})"), "num_views": views}
 
 
 def run(conf: ImageNetSiftLcsFVConfig, device=None, save_params: Optional[str] = None) -> dict:
-    """Fit on synthetic images and score the test split; the reference's
-    result keys. ``save_params`` writes the fitted parameters as an npz
-    that ``--params`` serves."""
+    """Fit on synthetic images and score the test split (``run_streamed``
+    when ``conf.stream``); the reference's result keys. ``save_params``
+    writes the fitted parameters as an npz that ``--params`` serves."""
     conf = resolve_scale(conf)
     device = resolve_device(device)
+    if conf.stream:
+        return run_streamed(conf, device, save_params)
     train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes)
     t0 = time.perf_counter()
     scored = fit(conf, train, conf.synthetic_classes, device)
@@ -249,13 +414,7 @@ def run(conf: ImageNetSiftLcsFVConfig, device=None, save_params: Optional[str] =
     elapsed = time.perf_counter() - t0
     if save_params:
         np.savez(save_params, **params_to_numpy(scored))
-    return {
-        "top_k_error": top_k_error,
-        "top_1_error": top1,
-        "feature_dim": conf.feature_dim,
-        "seconds": elapsed,
-        "summary": f"top-{conf.top_k} error: {top_k_error:.4f} | top-1 error: {top1:.4f}",
-    }
+    return _result(conf, top_k_error, top1, elapsed)
 
 
 def load_params(path: str) -> dict:
@@ -284,15 +443,29 @@ def main(argv=None):
     p.add_argument("--mixture-weight", type=float, default=0.5)
     p.add_argument("--synthetic-n", type=int, default=512)
     p.add_argument("--synthetic-classes", type=int, default=16)
+    p.add_argument("--stream", action="store_true",
+                   help="fit out of core: featurize in batches, keep only features, "
+                   "stream the head's solve from the host")
+    p.add_argument("--stream-batch", type=int, default=256)
+    p.add_argument("--fit-sample-images", type=int, default=512)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="where the head's solve checkpoints and resumes")
+    p.add_argument("--augment", action="store_true",
+                   help="score each test image as the mean over its center and corner crops")
+    p.add_argument("--augment-crop", type=int, default=0,
+                   help="crop side in pixels (0 = 7/8 of the image side)")
     a = p.parse_args(argv)
 
     device = resolve_device(a.device)
-    if a.fit:
+    if a.fit or a.stream or a.augment:
         out = run(
             ImageNetSiftLcsFVConfig(
                 pca_dims=a.pca_dims, gmm_k=a.gmm_k, lam=a.lam,
                 mixture_weight=a.mixture_weight, top_k=a.top_k, seed=a.seed,
                 synthetic_n=a.synthetic_n, synthetic_classes=a.synthetic_classes,
+                augment=a.augment, augment_crop=a.augment_crop, stream=a.stream,
+                stream_batch=a.stream_batch, fit_sample_images=a.fit_sample_images,
+                checkpoint_dir=a.checkpoint_dir,
             ),
             device,
             save_params=a.save_params,

@@ -30,23 +30,16 @@ class StageTimer:
         self.notes: Dict[str, object] = {}
         self._token = None
 
-    def _now(self):
-        if self.device.type == "cuda":
-            event = torch.cuda.Event(enable_timing=True)
-            event.record(torch.cuda.current_stream(self.device))
-            return event
-        return time.perf_counter()
-
     def __enter__(self) -> "StageTimer":
         self._token = _ACTIVE.set(self)
-        self._marks.append((None, self._now()))
+        self._marks.append((None, stamp(self.device)))
         return self
 
     def __exit__(self, *exc) -> None:
         _ACTIVE.reset(self._token)
 
     def mark(self, name: str) -> None:
-        self._marks.append((name, self._now()))
+        self._marks.append((name, stamp(self.device)))
 
     def seconds(self) -> Dict[str, float]:
         """Seconds per stage name, in the order the names first ended."""
@@ -54,9 +47,28 @@ class StageTimer:
             torch.cuda.synchronize(self.device)
         out: Dict[str, float] = {}
         for (_, t0), (name, t1) in zip(self._marks, self._marks[1:]):
-            dt = t0.elapsed_time(t1) / 1e3 if self.device.type == "cuda" else t1 - t0
-            out[name] = out.get(name, 0.0) + dt
+            out[name] = out.get(name, 0.0) + elapsed_s(t0, t1)
         return out
+
+
+def stamp(device: torch.device):
+    """A point in time: an event recorded on the current stream of a CUDA
+    device, the host clock otherwise."""
+    if device.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(device))
+        return event
+    return time.perf_counter()
+
+
+def elapsed_s(t0, t1) -> float:
+    """Seconds between two ``stamp``s (events must have completed)."""
+    return t0.elapsed_time(t1) / 1e3 if isinstance(t0, torch.cuda.Event) else t1 - t0
+
+
+def active() -> Optional[StageTimer]:
+    """The active timer of the current context, if any."""
+    return _ACTIVE.get()
 
 
 def mark(name: str) -> None:

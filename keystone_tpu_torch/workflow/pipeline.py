@@ -8,7 +8,10 @@ here is a list of ``nn.Module`` stages applied in order, and a gather runs
 its branches on the same input and concatenates their outputs on the last
 axis. ``and_then(estimator, data[, labels])`` fits eagerly: it applies the
 pipeline to ``data`` in batches, fits the estimator on the result and
-appends what it fitted.
+appends what it fitted. ``apply_batches`` streams row batches through a
+stage, reading them on a prefetch thread and staging them through pinned
+memory (``workflow/pipeline.py::Pipeline.apply_batches``, ``:551-601``,
+without its replica-pool ``engine``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import torch
 from torch import nn
 
 from keystone_tpu_torch.config import resolve_device
+from keystone_tpu_torch.loaders.stream import PREFETCH_DEPTH, prefetched
 from keystone_tpu_torch.utils.stages import mark
+from keystone_tpu_torch.utils.staging import HostStager
 
 # Rows of fit data a pipeline prefix takes at once: a memory matter only,
 # every stage being row-independent where a prefix is applied in batches.
@@ -71,6 +76,39 @@ class Transformer(nn.Module):
                 out = torch.empty((n, *y.shape[1:]), dtype=y.dtype, device=device)
             out[i : i + len(y)] = y
         return out
+
+    def apply_batches(self, batches, prefetch_depth: int = PREFETCH_DEPTH, device=None):
+        """Yields ``(self(X), y)`` on ``device`` for each ``(X, y)`` (or bare
+        host ``X``, with ``y`` None) of ``batches``, in source order. The
+        source runs on a prefetch thread ``prefetch_depth`` batches ahead
+        (0: on the caller's) and copies each batch into a pinned buffer; the
+        copy of batch b+1 to the card then runs while the stage computes on
+        batch b."""
+        device = resolve_device(device)
+        stager = HostStager(device, buffers=prefetch_depth + 2)
+
+        def staged():
+            for item in batches:
+                X, y = item if isinstance(item, tuple) and len(item) == 2 else (item, None)
+                X = torch.as_tensor(X)
+                if X.device.type != "cpu":
+                    raise ValueError(f"apply_batches takes host batches, got one on {X.device}")
+                yield stager.fill(X.shape, X.dtype, lambda out: out.copy_(X)), y
+
+        def upload(item):
+            return None if item is None else (stager.upload(item[0]), item[1])
+
+        with prefetched(staged(), prefetch_depth) as src:
+            try:
+                it = iter(src)
+                nxt = upload(next(it, None))
+                while nxt is not None:
+                    cur, y = nxt
+                    stager.reclaim()
+                    nxt = upload(next(it, None))
+                    yield self(stager.ready(cur)), y
+            finally:
+                stager.close()
 
 
 class Pipeline(Transformer):

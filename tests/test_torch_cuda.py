@@ -14,6 +14,12 @@ is held against itself on the CPU at the descriptor tolerance of
 tests/test_descriptors.py (rtol 2e-4, atol 2e-4), which cuDNN's TF32
 convolutions would miss.
 
+The streamed solve on the card, double-buffered from pinned memory, gives
+the same bits as the same solve serialized (``overlap=False``): the copies
+move bytes, and the updates run in one order on one stream. A pinned
+staging buffer is not refilled while its copy is in flight.
+``apply_batches`` on the card is held against the CPU at rtol 1e-5.
+
 A small fit of the whole pipeline on the card is held against the same fit
 on the CPU: both draw the same random numbers, and differ only in rounding.
 PCA components up to sign at atol 1e-3 (rounding rotates components whose
@@ -22,16 +28,23 @@ of each array's largest magnitude, and test scores within 1e-2 of the
 largest |score|.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 import keystone_tpu_torch.ops.fisher_vector as fvo
 from keystone_tpu_torch.convert import params_to_numpy
+from keystone_tpu_torch.linalg.bcd import block_coordinate_descent_streamed
+from keystone_tpu_torch.loaders.stream import BatchIterator
 from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.nodes.images.external.fisher_vector import FisherVector
 from keystone_tpu_torch.ops.sift import dense_sift
+from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
+from keystone_tpu_torch.utils.staging import HostStager
+from keystone_tpu_torch.workflow import Pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +175,48 @@ def test_fit_launches_the_kernel_on_every_training_batch(cuda):
     # Three batches of the training set (64, 64, 22), two branches: the
     # branch fits themselves encode nothing.
     assert fvo.LAUNCHES - before == 2 * 3
+
+
+def test_streamed_solve_double_buffered_equals_serialized(cuda):
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(600, 320)).astype(np.float32)
+    Y = torch.from_numpy(rng.normal(size=(600, 7)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, size=600).astype(np.float32)).to(cuda)
+    runs = [
+        torch.cat(block_coordinate_descent_streamed(
+            X, Y, 64, 3, lam=0.1, row_weights=w, col_center=X.mean(axis=0), overlap=overlap)[0])
+        for overlap in (True, False)
+    ]
+    assert torch.equal(runs[0], runs[1])
+    cpu = torch.cat(block_coordinate_descent_streamed(
+        X, Y.cpu(), 64, 3, lam=0.1, row_weights=w.cpu(), col_center=X.mean(axis=0))[0])
+    torch.testing.assert_close(runs[0].cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_a_pinned_buffer_waits_for_its_copy(cuda):
+    stager = HostStager(cuda, buffers=1)
+    shape = (4096, 4096)
+    up = stager.upload(stager.fill(shape, torch.float32, lambda out: out.fill_(1.0)))
+    refilled = threading.Event()
+
+    def refill():
+        stager.fill(shape, torch.float32, lambda out: out.fill_(2.0))
+        refilled.set()
+
+    producer = threading.Thread(target=refill)
+    producer.start()
+    assert not refilled.wait(0.3)  # the one buffer is still lent to the copy
+    stager.reclaim()
+    assert refilled.wait(10)
+    producer.join(timeout=10)
+    assert not producer.is_alive()
+    assert torch.equal(stager.ready(up), torch.ones(shape, device=cuda))
+    stager.close()
+
+
+def test_apply_batches_on_the_card_equals_the_cpu(cuda):
+    X = np.random.default_rng(6).normal(size=(70, 9)).astype(np.float32)
+    pipe = Pipeline([L2Normalizer()])
+    got = [o.cpu() for o, _ in pipe.apply_batches(BatchIterator.from_arrays(X, None, 16), device=cuda)]
+    want = pipe.apply_in_batches(X, batch_size=16, device="cpu")
+    torch.testing.assert_close(torch.cat(got), want, rtol=1e-5, atol=1e-6)

@@ -49,9 +49,24 @@ script exits non-zero:
    and resumed from its checkpoints (W within 1e-6 of the uninterrupted);
    the kernel phase also holds and times the kernel at the streamed
    shapes (B=256, and B=250 at m=2,809);
-8. one JSON line with every kernel's launches (on every path: serving,
+8. the solver's modes on the same features (A 8,192 x 65,536): bfloat16
+   storage of A, eager and streamed, and TF32 products (precision
+   ``high``), eager, each against the float32 solve at ``highest``
+   (objectives per epoch and training scores within 5e-2, W's distance,
+   train and test errors, device peak, per-block times when streamed, and
+   the last block's visit in float64 on the operands the solve held); then
+   the eager solve with its inverses formed one block at a time against
+   the batched one and the streamed one on one centered A;
+9. real data: 1,000 synsets of 500x375 JPEGs made from a seed in a
+   temporary directory (4 training and 1 test image each, half the
+   synsets as tars), decode throughput of ``load`` and ``stream_batches``
+   against featurizing on the card, the first streamed batch against
+   ``load`` bit for bit, and ``run_streamed`` on the JPEGs end to end
+   (65,536 features, 3 epochs, 1,000 classes, batches of 256, a balanced
+   sample of 512);
+10. one JSON line with every kernel's launches (on every path: serving,
    fitting, serving what was fitted, the streamed fit, plain and TTA
-   streamed scoring), error and times: ``ms`` is the kernel's device time
+   streamed scoring, the streamed fit on real data), error and times: ``ms`` is the kernel's device time
    per call at B=64 (``torch.profiler``), ``call_ms`` the same call between
    CUDA events, host included.
 
@@ -570,6 +585,7 @@ def fit_full(torch, train, test) -> dict:
     from keystone_tpu_torch.convert import params_from_numpy, params_to_numpy
     from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
     from keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv import (
+        REAL_SCALE,
         ImageNetSiftLcsFVConfig,
         build_serving_pipeline,
         evaluate,
@@ -580,7 +596,7 @@ def fit_full(torch, train, test) -> dict:
     from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
     # The reference's real-data settings, on synthetic images.
-    conf = resolve_scale(ImageNetSiftLcsFVConfig(pca_dims=64), real=True)
+    conf = resolve_scale(ImageNetSiftLcsFVConfig(pca_dims=64, **REAL_SCALE))
     if (conf.gmm_k, conf.num_iters, conf.feature_dim) != (256, 3, 65536):
         raise AssertionError("the full-width settings are not the reference's real-data settings")
     torch.cuda.synchronize()
@@ -915,7 +931,367 @@ def fit_streamed(torch, train, test, eager) -> dict:
           f"W's distance from the uninterrupted W relative to its norm {rel_w:.3e} (tol {RESUME_RTOL})")
     if not rel_w <= RESUME_RTOL:
         raise AssertionError("the resumed solve does not give the uninterrupted W")
-    return out
+    return {"launches": out, "A": A, "targets": targets, "objectives": objs}
+
+
+# The solver's modes on the full-width features, against the float32 solve
+# at precision highest. The bounds are tests/test_bf16_mode.py's for
+# bfloat16 storage (its solves track the float32 oracle within 5e-2,
+# test_bcd_tracks_f32_oracle and test_estimator_prediction_parity): the
+# objective after each epoch, and the training scores relative to their
+# norm, each within a relative 5e-2 of the float32 solve's. TF32 keeps 10
+# of float32's 23 mantissa bits, so it is held to the same bounds.
+MODE_RTOL = 5e-2
+# The last block's visit, checked in float64 on the operands the solve
+# held (captured by a hook here): the block and A_l·w as stored, R and W_l
+# as they came in, bfloat16 roundings of W_l and R+ mirrored. What is left
+# is the rounding of the float32 gram, inverse and sums, so the bound is
+# SOLVE_KAPPA_U times kappa times float32's unit roundoff; for TF32
+# products, times TF32's (2^-11).
+TF32_UNIT_ROUNDOFF = 2.0**-11
+
+
+def capture_last_visit(bcd, into: dict):
+    """A replacement of ``bcd._solve_update`` that keeps the operands and
+    the result of the latest call in ``into``."""
+    real = bcd._solve_update
+
+    def update(a_b, aw, inv, R, w_b, precision):
+        R_new, w_new = real(a_b, aw, inv, R, w_b, precision)
+        into.update(a_b=a_b, aw=aw, R=R, w_b=w_b, w_new=w_new)
+        return R_new, w_new
+
+    return update
+
+
+def check_visit(torch, visit: dict, lam: float, unit_roundoff: float, label: str) -> dict:
+    """The captured visit in float64: R+ = R + A_l·W_l (W_l in A's dtype),
+    rhs = (A_l·w)' R+ (R+ in A's dtype), G the symmetrized (A_l·w)' A_l + lam I;
+    the new W_l must satisfy G W_l = rhs."""
+    a, aw = visit["a_b"], visit["aw"]
+    store = a.dtype
+    with torch.inference_mode():
+        a64, aw64 = a.double(), aw.double()
+        r_plus = visit["R"].double() + a64 @ visit["w_b"].to(store).double()
+        rhs = aw64.T @ r_plus.float().to(store).double()
+        gram = aw64.T @ a64
+        gram = (gram + gram.T) / 2
+        gram.diagonal().add_(lam)
+        w_new = visit["w_new"].double()
+        residual = float(torch.linalg.norm(gram @ w_new - rhs) / torch.linalg.norm(rhs))
+        w64 = torch.cholesky_solve(rhs, torch.linalg.cholesky(gram))
+        dist = float(torch.linalg.norm(w_new - w64) / torch.linalg.norm(w64))
+        eig = torch.linalg.eigvalsh(gram)
+        cond = float(eig[-1] / eig[0])
+    tol = SOLVE_KAPPA_U * cond * unit_roundoff
+    print(f"{label}: last visit in float64 (A stored {str(store).removeprefix('torch.')}): condition number "
+          f"{cond:.3e}; normal-equation residual {residual:.3e}, distance from a float64 solve {dist:.3e} "
+          f"(tol {SOLVE_KAPPA_U} x kappa x {unit_roundoff:.3e} = {tol:.3e})")
+    if not (residual <= tol and dist <= tol):
+        raise AssertionError(f"{label}: the last visit does not solve its normal equations: {residual}, {dist}")
+    return {"residual": residual, "distance": dist, "tol": tol}
+
+
+def solver_modes(torch, eager, streamed, test) -> None:
+    """bfloat16 storage (eager and streamed) and TF32 products (eager) against
+    the float32 solve at precision highest, on the full-width features; then
+    the eager solve with its inverses formed one block at a time."""
+    import numpy as np
+
+    import keystone_tpu_torch.linalg.bcd as bcd
+    from keystone_tpu_torch.linalg.row_matrix import solver_matmul
+    from keystone_tpu_torch.nodes.learning.block_least_squares import BlockWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
+    from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
+    from keystone_tpu_torch.utils.stages import StageTimer
+    from keystone_tpu_torch.workflow import Pipeline
+
+    conf, scored = eager["conf"], eager["scored"]
+    featurizer = Pipeline(scored.stages[:-1])
+    A, targets = streamed["A"], streamed["targets"]
+    labels = targets.argmax(dim=1)
+    A_dev = torch.from_numpy(A).cuda()
+    n_iters = conf.num_iters
+    print(f"features: A {A.shape}, {A.nbytes / 2**30:.3f} GiB as float32 (the full-width phase's, on the card "
+          f"and on the host)")
+    with torch.inference_mode():
+        product = solver_matmul(A_dev[:256, :512].to(torch.bfloat16), torch.ones(512, 4, device="cuda"))
+    print(f"a solver product of bfloat16 A on the card (torch.mm with out_dtype): {product.dtype}")
+    if product.dtype != torch.float32:
+        raise AssertionError(f"a bfloat16 solver product came back as {product.dtype}")
+
+    def solve(stream: bool, **modes):
+        est = BlockWeightedLeastSquaresEstimator(
+            block_size=conf.block_size, num_iters=n_iters, lam=conf.lam, mixture_weight=conf.mixture_weight,
+            device="cuda", stream=stream, **modes)
+        visit = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patch.object(bcd, "_solve_update", capture_last_visit(bcd, visit)), StageTimer("cuda") as timer:
+            head = est.fit(A if stream else A_dev, targets)
+        secs = timer.seconds()  # synchronises
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        objs = [float(timer.notes[f"objective after epoch {e}"]) for e in range(1, n_iters + 1)]
+        with torch.inference_mode():
+            scores = head(A_dev)
+            top = TopKClassifier(conf.top_k)(scores)
+            train_err = (float(1 - (top == labels[:, None]).any(dim=1).float().mean()),
+                         float((top[:, 0] != labels).float().mean()))
+        test_err = pipe.evaluate(featurizer.and_then(head), conf, test, device="cuda")
+        return dict(head=head, secs=secs, notes=timer.notes, wall=wall, peak=peak, objs=objs, scores=scores,
+                    train_err=train_err, test_err=test_err, visit=visit)
+
+    f32 = solve(False, precision="highest", storage_dtype="float32")
+    base_w = f32["head"].W
+    print(f"float32, highest (eager): wall {f32['wall']:.3f} s; factor phase {f32['secs']['BCD factor phase']:.4f} s, "
+          f"epochs {epochs_line(f32['secs'], n_iters)}; objectives " + ", ".join(f"{o:.6e}" for o in f32["objs"])
+          + f"; train top-5/top-1 {f32['train_err'][0]:.4f}/{f32['train_err'][1]:.4f}, test "
+          f"{f32['test_err'][0]:.4f}/{f32['test_err'][1]:.4f}; device peak above the features "
+          f"{f32['peak'] / 2**30:.3f} GiB (A as solved: {A.nbytes / 2**30:.3f} GiB)")
+    check_visit(torch, f32.pop("visit"), conf.lam, F32_UNIT_ROUNDOFF, "float32, highest (eager)")
+    for label, stream, modes, u in (
+        ("bfloat16 storage (eager)", False, dict(storage_dtype="bfloat16"), F32_UNIT_ROUNDOFF),
+        ("bfloat16 storage (streamed)", True, dict(storage_dtype="bfloat16"), F32_UNIT_ROUNDOFF),
+        ("float32, high = TF32 (eager)", False, dict(precision="high"), TF32_UNIT_ROUNDOFF),
+    ):
+        run = solve(stream, **modes)
+        rel = [abs(o - w) / abs(w) for o, w in zip(run["objs"], f32["objs"])]
+        w_dist = float(torch.linalg.norm(run["head"].W - base_w) / torch.linalg.norm(base_w))
+        s_dist = float(torch.linalg.norm(run["scores"] - f32["scores"]) / torch.linalg.norm(f32["scores"]))
+        a_bytes = A.nbytes // (2 if "bfloat16" in label else 1)
+        print(f"{label}: wall {run['wall']:.3f} s; "
+              + (f"factor phase {run['secs']['BCD factor phase']:.4f} s, " if not stream else "")
+              + f"epochs {epochs_line(run['secs'], n_iters)}; objectives "
+              + ", ".join(f"{o:.6e}" for o in run["objs"])
+              + " (relative to float32's: " + ", ".join(f"{r:.3e}" for r in rel) + f"; tol {MODE_RTOL}); "
+              f"W's distance from float32's {w_dist:.3e} (relative); training scores' distance {s_dist:.3e} "
+              f"(tol {MODE_RTOL}); train top-5/top-1 {run['train_err'][0]:.4f}/{run['train_err'][1]:.4f}, test "
+              f"{run['test_err'][0]:.4f}/{run['test_err'][1]:.4f}; device peak above the features "
+              f"{run['peak'] / 2**30:.3f} GiB (A as solved: {a_bytes / 2**30:.3f} GiB)")
+        if stream:
+            print(f"{label}, per-block medians: " + blocks_line(run["notes"]))
+        if not (max(rel) <= MODE_RTOL and s_dist <= MODE_RTOL):
+            raise AssertionError(f"{label} does not track the float32 solve: objectives {rel}, scores {s_dist}")
+        if run["head"].W.dtype != torch.float32:
+            raise AssertionError(f"{label}: W is {run['head'].W.dtype}")
+        check_visit(torch, run["visit"], conf.lam, u, label)
+        del run
+    del f32
+
+    # Queue: the streamed objectives 3.8e-4-4.0e-4 from the eager ones. One
+    # centered float32 A for all three solves, so that only the forming of
+    # the inverses differs.
+    w = BlockWeightedLeastSquaresEstimator(mixture_weight=conf.mixture_weight)._weights(targets)
+    with torch.inference_mode():
+        wsum = w.sum()
+        x_mean = (w @ A_dev) / wsum
+        A_c = A_dev - x_mean
+        Y_c = targets - (w @ targets) / wsum
+    del A_dev
+    A_c_host = A_c.cpu().numpy()
+    real_inverse = bcd.spd_inverse
+
+    def one_at_a_time(grams):
+        return torch.stack([real_inverse(g) for g in grams])
+
+    objs = {}
+    for label in ("eager, batched inverses", "eager, inverses one block at a time", "streamed"):
+        with StageTimer("cuda") as timer:
+            if label == "streamed":
+                bcd.block_coordinate_descent_streamed(A_c_host, Y_c, 8192, n_iters, lam=conf.lam, row_weights=w)
+            elif label.endswith("batched inverses"):
+                bcd.block_coordinate_descent(A_c, Y_c, 8192, n_iters, lam=conf.lam, row_weights=w)
+            else:
+                with patch.object(bcd, "spd_inverse", one_at_a_time):
+                    bcd.block_coordinate_descent(A_c, Y_c, 8192, n_iters, lam=conf.lam, row_weights=w)
+        timer.seconds()
+        objs[label] = [float(timer.notes[f"objective after epoch {e}"]) for e in range(1, n_iters + 1)]
+        print(f"same centered A, {label}: objectives " + ", ".join(f"{o:.9e}" for o in objs[label]))
+
+    def gap(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(objs[a], objs[b]))
+
+    one, batched, between = (gap("eager, inverses one block at a time", "streamed"),
+                             gap("eager, batched inverses", "streamed"),
+                             gap("eager, inverses one block at a time", "eager, batched inverses"))
+    # A comparison, not a check: it measures where the estimators' gap
+    # comes from.
+    print(f"objective gaps (largest over epochs, relative): streamed vs eager with inverses one at a time "
+          f"{one:.3e}, streamed vs eager batched {batched:.3e}, one at a time vs batched {between:.3e}; the "
+          f"estimators' streamed vs eager, each centering on its own: " + ", ".join(
+              f"{abs(s - e) / abs(e):.3e}" for s, e in zip(streamed["objectives"], eager["objectives"])))
+
+
+# The real-data phase: a JPEG dataset made from a seed in a temporary
+# directory, 1,000 synsets (half as .tar archives, half as directories), 4
+# training and 1 test image each, 500x375 RGB at quality 90 (ImageNet's
+# typical size, so decode and resize do real work).
+REAL_SYNSETS = 1000
+REAL_TRAIN_PER, REAL_TEST_PER = 4, 1
+REAL_W, REAL_H = 500, 375
+
+
+def jpeg_dataset(np, root: str, seed: int = 0) -> dict:
+    """Each synset's images: the synthetic loader's grating of that class
+    (its angle and frequency), drawn at 500x375 with a random phase, tint
+    and pixel noise, encoded by PIL; made in threads, one synset a task."""
+    import io
+    import os
+    import tarfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:REAL_H, 0:REAL_W].astype(np.float32)
+    angles = np.linspace(0, np.pi, REAL_SYNSETS, endpoint=False)
+    freqs = 2 + (np.arange(REAL_SYNSETS) % 8)
+    with open(os.path.join(root, "labels.txt"), "w") as f:
+        f.writelines(f"n{c:08d} {c}\n" for c in range(REAL_SYNSETS))
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(root, split))
+
+    def one(c: int) -> int:
+        rng = np.random.default_rng([seed, c])
+        proj = (xx * np.cos(angles[c]) + yy * np.sin(angles[c])) * np.float32(2 * np.pi * freqs[c] / 256)
+        written = 0
+        for split, per in (("train", REAL_TRAIN_PER), ("test", REAL_TEST_PER)):
+            synset = f"n{c:08d}"
+            blobs = []
+            for _ in range(per):
+                base = 0.5 + 0.5 * np.sin(proj + np.float32(rng.uniform(0, 2 * np.pi)))
+                tint = (0.5 + 0.5 * rng.uniform(size=3)).astype(np.float32)
+                pixels = 230 * base[..., None] * tint + rng.integers(0, 25, size=(REAL_H, REAL_W, 3), dtype=np.uint8)
+                out = io.BytesIO()
+                Image.fromarray(pixels.astype(np.uint8)).save(out, format="JPEG", quality=90)
+                blobs.append(out.getvalue())
+            if c % 2 == 0:
+                with tarfile.open(os.path.join(root, split, f"{synset}.tar"), "w") as tf:
+                    for i, blob in enumerate(blobs):
+                        info = tarfile.TarInfo(f"{synset}_{i}.JPEG")
+                        info.size = len(blob)
+                        tf.addfile(info, io.BytesIO(blob))
+            else:
+                os.makedirs(os.path.join(root, split, synset))
+                for i, blob in enumerate(blobs):
+                    with open(os.path.join(root, split, synset, f"{synset}_{i}.JPEG"), "wb") as f:
+                        f.write(blob)
+            written += sum(len(b) for b in blobs)
+        return written
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        nbytes = sum(pool.map(one, range(REAL_SYNSETS)))
+    return {"data_path": os.path.join(root, "train"), "test_data_path": os.path.join(root, "test"),
+            "label_map_path": os.path.join(root, "labels.txt"), "bytes": nbytes}
+
+
+def fit_real(torch, eager) -> int:
+    """Decode against featurize throughput on the card, the first streamed
+    batch against ``load``, then ``run_streamed`` end to end on the JPEGs.
+    Returns the Fisher-vector launches of that run."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import keystone_tpu_torch.ops.fisher_vector as fvo
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+    from keystone_tpu_torch.loaders.labeled_data import decode_pool_workers
+    from keystone_tpu_torch.loaders.stream import BatchIterator
+    from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
+    from keystone_tpu_torch.utils.stages import StageTimer
+    from keystone_tpu_torch.workflow import Pipeline
+
+    cores = os.cpu_count() or 1
+    workers = decode_pool_workers(None)
+    with tempfile.TemporaryDirectory(prefix="keystone-smoke-jpeg-") as root:
+        t0 = time.perf_counter()
+        paths = jpeg_dataset(np, root)
+        n_train, n_test = REAL_SYNSETS * REAL_TRAIN_PER, REAL_SYNSETS * REAL_TEST_PER
+        print(f"dataset: {REAL_SYNSETS} synsets (half .tar, half directories), {n_train} training and {n_test} "
+              f"test JPEGs of {REAL_W}x{REAL_H} at quality 90, {paths.pop('bytes') / 2**20:.1f} MiB, encoded in "
+              f"{time.perf_counter() - t0:.3f} s (host, not part of the phase)")
+        label_map = ImageNetLoader.load_label_map(paths["label_map_path"])
+
+        t0 = time.perf_counter()
+        train = ImageNetLoader.load(paths["data_path"], label_map)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first, n_streamed = None, 0
+        for X, y in ImageNetLoader.stream_batches(paths["data_path"], label_map, batch_size=256):
+            first = (X, y) if first is None else first
+            n_streamed += len(X)
+        stream_s = time.perf_counter() - t0
+        for name, secs in (("load", load_s), ("stream_batches (batches of 256)", stream_s)):
+            print(f"decode, {name}: {n_train} images to 256x256 in {secs:.3f} s = {n_train / secs:.1f} images/s, "
+                  f"{n_train / secs / cores:.1f} per host core ({cores} cores, {workers} decode threads)")
+        same = np.array_equal(first[0], train.data[:256]) and np.array_equal(first[1], train.labels[:256])
+        print(f"first streamed batch equal to load's first 256 images bit for bit: {same}")
+        if not same or n_streamed != n_train or train.data.shape != (n_train, 256, 256, 3):
+            raise AssertionError("stream_batches disagrees with load")
+
+        featurizer = Pipeline(eager["scored"].stages[:-1])
+        rates = {}
+        for name, batches in (
+            ("decoded images (host arrays, pinned staging)", lambda: BatchIterator.from_arrays(train.data, train.labels, 256)),
+            ("stream_batches (decode and featurize together)", lambda: ImageNetLoader.stream_batches(
+                paths["data_path"], label_map, batch_size=256)),
+        ):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                n = sum(len(F) for F, _ in featurizer.apply_batches(batches(), device="cuda"))
+            torch.cuda.synchronize()
+            rates[name] = n / (time.perf_counter() - t0)
+            print(f"featurizing {n} images in batches of 256 from {name}: {rates[name]:.1f} images/s (host clock; "
+                  "features left on the card)")
+        decode_rate = n_train / stream_s
+        card_rate = rates["decoded images (host arrays, pinned staging)"]
+        print(f"decode keeps up with the card: {decode_rate >= card_rate} (decode {decode_rate:.1f} images/s on "
+              f"{cores} cores against featurizing {card_rate:.1f} images/s; ratio {decode_rate / card_rate:.3f})")
+        del train, first
+
+        conf = pipe.ImageNetSiftLcsFVConfig(**paths, pca_dims=64, stream=True, stream_batch=256,
+                                            fit_sample_images=512)
+        scale = pipe.resolve_scale(conf)
+        if (scale.gmm_k, scale.num_iters, scale.feature_dim) != (256, 3, 65536):
+            raise AssertionError("real data does not resolve to the reference's 65,536 features and 3 epochs")
+        fitted = {}
+        real_fit = pipe.fit_streamed
+
+        def recording_fit(conf, fit_sample, train_batches, num_classes, device=None):
+            fitted.update(num_classes=num_classes, sample=np.shape(fit_sample))
+            fitted["scored"] = real_fit(conf, fit_sample, train_batches, num_classes, device)
+            return fitted["scored"]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with patch.object(pipe, "fit_streamed", recording_fit):
+            fvo.LAUNCHES = 0  # the real-data path's run starts here
+            with StageTimer("cuda") as timer:
+                out = pipe.run(conf, device="cuda")
+            launches = fvo.LAUNCHES  # and ends here
+        secs = timer.seconds()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    head = fitted["scored"].stages[-1]
+    print(f"run_streamed on the JPEGs: {out['summary']}; feature dim {out['feature_dim']}, {fitted['num_classes']} "
+          f"classes, featurizer sample {fitted['sample']}, head W {tuple(head.W.shape)}; {out['seconds']:.3f} s "
+          f"(host clock)")
+    print("run_streamed stages (s, CUDA events): " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+          + f"; sum {sum(secs.values()):.4f}; peak device memory {peak:.3f} GiB")
+    print("run_streamed per-block medians: " + blocks_line(timer.notes))
+    want = 2 * (-(-n_train // 256) + -(-n_test // 256))
+    print(f"fv launches of run_streamed on real data: {launches} (2 branches x {want // 2} batches of 256: "
+          f"training and test)")
+    if (out["feature_dim"], fitted["num_classes"], head.W.shape) != (65536, REAL_SYNSETS, (65536, REAL_SYNSETS)):
+        raise AssertionError("the real-data fit is not 65,536 features over 1,000 classes")
+    if fitted["sample"] != (512, 256, 256, 3) or launches != want:
+        raise AssertionError(f"real-data run: sample {fitted['sample']}, {launches} launches (want {want})")
+    if not all(np.isfinite([out["top_k_error"], out["top_1_error"]])):
+        raise AssertionError("the real-data errors are not finite")
+    return launches
 
 
 def main() -> int:
@@ -982,18 +1358,27 @@ def main() -> int:
     phase("fit, streamed")
     streamed = fit_streamed(torch, train, test, fitted)
 
+    phase("solver modes")
+    solver_modes(torch, fitted, streamed, test)
+    del train
+
+    phase("fit, real data")
+    real_launches = fit_real(torch, fitted)
+
     phase("kernels")
     kernels = [{
         "name": "fisher_vector",
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/fisher_vector.cu",
         "replaces": "keystone_tpu/ops/fisher_vector_pallas.py:108",
-        "launches": served["launches"] + fitted["launches"] + fitted["served_launches"] + sum(streamed.values()),
+        "launches": (served["launches"] + fitted["launches"] + fitted["served_launches"]
+                     + sum(streamed["launches"].values()) + real_launches),
         "launches_by_path": {
             "serve": served["launches"],
             "fit": fitted["launches"],
             "serve fitted": fitted["served_launches"],
-            **streamed,
+            **streamed["launches"],
+            "fit streamed, real data": real_launches,
         },
         "max_abs_err": max_err,
         "ms": timing["ms"],

@@ -21,6 +21,18 @@ the blocks of equal width; an epoch is then gemms only. Without it each
 visit factors its gram again and solves with ``torch.cholesky_solve``.
 These are library calls, as the reference leaves them to XLA.
 
+The solver's modes (``config.py``) are arguments of both solves:
+
+- ``precision`` of the float32 products (``highest``, ``high``,
+  ``default``; ``row_matrix.solver_matmul``);
+- the storage dtype of A: the dense solve takes A's own dtype, the
+  streamed one prepares its blocks in ``storage_dtype``. With bfloat16, A
+  and the row weights are stored in bfloat16 (the reference casts its
+  ``w_rows`` to A's dtype), every product that touches A rounds its other
+  operand (W_b, R) to bfloat16 and accumulates into float32, and W, R, the
+  grams, inverses and objectives stay float32. A streamed block is
+  centered in float32 and then rounded, once.
+
 The streamed solve keeps A in host memory, the caller's array, and sends
 one column block at a time to the device: a prefetch thread prepares the
 blocks (a contiguous copy, centered by ``col_center``) into pinned buffers
@@ -56,7 +68,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from keystone_tpu_torch.config import solver_precision
 from keystone_tpu_torch.linalg.row_matrix import HBM_BUDGET_BYTES, solver_matmul
+from keystone_tpu_torch.linalg.row_matrix import storage_dtype as storage_dtype_of
 from keystone_tpu_torch.loaders.stream import PREFETCH_DEPTH, PrefetchIterator
 from keystone_tpu_torch.utils.stages import active, elapsed_s, mark, note, stamp
 from keystone_tpu_torch.utils.staging import HostStager
@@ -68,9 +82,13 @@ SNAPSHOT = "bcd_stream.pt"
 _EPOCH_FILE = re.compile(r"epoch_(\d+)\.pt")
 
 
-def ridge_gram(a_b: torch.Tensor, aw: torch.Tensor, lam: float) -> torch.Tensor:
-    """(A_b·w)ᵀ A_b + λI."""
-    gram = solver_matmul(aw.T, a_b)
+def ridge_gram(a_b: torch.Tensor, aw: torch.Tensor, lam: float, precision: str = "highest") -> torch.Tensor:
+    """(A_b·w)ᵀ A_b + λI in float32, symmetrized as the reference's
+    ``jnp.linalg.cholesky`` symmetrizes its input: the factorisation reads
+    one triangle only, and with A in bfloat16 the rounded A_b·w makes the
+    product visibly unsymmetric."""
+    gram = solver_matmul(aw.T, a_b, precision)
+    gram = (gram + gram.T).mul_(0.5)
     gram.diagonal().add_(lam)
     return gram
 
@@ -85,21 +103,21 @@ def _weighted(a_b, row_weights):
     return a_b if row_weights is None else a_b * row_weights[:, None]
 
 
-def _solve_update(a_b, aw, inv, R, w_b):
+def _solve_update(a_b, aw, inv, R, w_b, precision):
     """One visit with the block's ridge inverse: (R, W_b) after it."""
-    r_plus = R + solver_matmul(a_b, w_b)
-    w_new = solver_matmul(inv, solver_matmul(aw.T, r_plus))
-    return r_plus - solver_matmul(a_b, w_new), w_new
+    r_plus = R + solver_matmul(a_b, w_b, precision)
+    w_new = solver_matmul(inv, solver_matmul(aw.T, r_plus, precision), precision)
+    return r_plus - solver_matmul(a_b, w_new, precision), w_new
 
 
-def _first_update(a_b, aw, R, w_b, lam):
+def _first_update(a_b, aw, R, w_b, lam, precision):
     """A visit that forms the block's ridge inverse first: (R, W_b, inverse).
     The gram is freed once factored, so that at most two (b, b) temporaries
     live beside the inverses."""
-    factor = torch.linalg.cholesky(ridge_gram(a_b, aw, lam))
+    factor = torch.linalg.cholesky(ridge_gram(a_b, aw, lam, precision))
     inv = torch.cholesky_inverse(factor)
     del factor
-    R, w_b = _solve_update(a_b, aw, inv, R, w_b)
+    R, w_b = _solve_update(a_b, aw, inv, R, w_b, precision)
     return R, w_b, inv
 
 
@@ -120,22 +138,28 @@ def _end_epoch(epoch, R, W, lam, row_weights, checkpoint_dir, fingerprint) -> No
 # -- checkpoints ---------------------------------------------------------
 
 
-def _fingerprint(n, d, k, block_size, lam, weighted, a_probe, B) -> dict:
+_PROBES = ("a_probe", "b_probe")
+
+
+def _fingerprint(n, d, k, block_size, lam, weighted, a_dtype, a_probe, B) -> dict:
     """The problem a checkpoint belongs to (the reference's
-    ``_make_fingerprint`` without its mesh keys). The probes sum the first
-    and last rows of the matrix the solve sees (A after centering) and of B."""
+    ``_make_fingerprint`` without its mesh keys). ``a_dtype`` is the dtype A
+    is stored in. The probes sum the first and last rows of the matrix the
+    solve sees (A after centering) and of B."""
     return {
         "n": int(n), "d": int(d), "k": int(k), "block_size": int(block_size),
-        "lam": float(lam), "weighted": bool(weighted), "a_dtype": "float32",
+        "lam": float(lam), "weighted": bool(weighted), "a_dtype": str(a_dtype).removeprefix("torch."),
         "a_probe": float(a_probe), "b_probe": float(B[0].sum() + B[-1].sum()),
     }
 
 
 def _same_problem(saved, expected) -> bool:
+    """Every key equal, λ included; the probes, sums of floats that the two
+    solves round differently, within a relative 1e-3."""
     if set(saved) != set(expected):
         return False
     for key, val in expected.items():
-        if isinstance(val, float):
+        if key in _PROBES:
             if abs(float(saved[key]) - val) > 1e-3 * max(1.0, abs(val)):
                 return False
         elif saved[key] != val:
@@ -207,25 +231,30 @@ def block_coordinate_descent(
     row_weights: Optional[torch.Tensor] = None,
     cache_grams: Optional[bool] = None,
     checkpoint_dir: Optional[str] = None,
+    precision: Optional[str] = None,
 ) -> Tuple[List[torch.Tensor], List[Tuple[int, int]]]:
-    """Returns (per-block weights, block column ranges). ``A`` (n, d) and
-    ``B`` (n, k) are float32 on one device; ``A`` is only read (its column
-    blocks are views). With ``checkpoint_dir`` the solve resumes from the
-    latest epoch saved there for this problem and saves every epoch."""
+    """Returns (per-block weights, block column ranges). ``A`` (n, d), in
+    its storage dtype (float32 or bfloat16), and ``B`` (n, k), float32, lie
+    on one device; ``A`` is only read (its column blocks are views). With
+    ``checkpoint_dir`` the solve resumes from the latest epoch saved there
+    for this problem and saves every epoch."""
+    precision = solver_precision(precision)
     n, d = A.shape
     k = B.shape[1]
     if B.shape[0] != n:
         raise ValueError(f"A has {n} rows, B {B.shape[0]}")
     blocks = [(s, min(s + block_size, d)) for s in range(0, d, block_size)]
+    f32 = dict(dtype=torch.float32, device=A.device)
     if cache_grams is None:
-        factor_bytes = sum((e - s) ** 2 for s, e in blocks) * A.element_size()
+        factor_bytes = sum((e - s) ** 2 for s, e in blocks) * 4
         cache_grams = num_iters > 1 and factor_bytes < HBM_BUDGET_BYTES // 4
-    W = [A.new_zeros((e - s, k)) for s, e in blocks]
+    w_rows = None if row_weights is None else row_weights.to(A.dtype)
+    W = [torch.zeros((e - s, k), **f32) for s, e in blocks]
     R = B.clone()
     start_epoch, fingerprint = 0, None
     if checkpoint_dir is not None:
-        a_probe = float(A[0].sum() + A[-1].sum())
-        fingerprint = _fingerprint(n, d, k, block_size, lam, row_weights is not None, a_probe, B)
+        a_probe = float(A[0].float().sum() + A[-1].float().sum())
+        fingerprint = _fingerprint(n, d, k, block_size, lam, row_weights is not None, A.dtype, a_probe, B)
         state = _latest_epoch(checkpoint_dir, fingerprint, A.device)
         if state is not None:
             start_epoch, W, R = state["epoch"], list(state["W"]), state["R"]
@@ -237,10 +266,10 @@ def block_coordinate_descent(
         # on its own.
         for width in sorted({e - s for s, e in blocks}, reverse=True):
             idx = [i for i, (s, e) in enumerate(blocks) if e - s == width]
-            grams = A.new_empty((len(idx), width, width))
+            grams = torch.empty((len(idx), width, width), **f32)
             for j, i in enumerate(idx):
                 a_b = A[:, blocks[i][0]:blocks[i][1]]
-                grams[j] = ridge_gram(a_b, _weighted(a_b, row_weights), lam)
+                grams[j] = ridge_gram(a_b, _weighted(a_b, w_rows), lam, precision)
             invs.extend(zip(idx, spd_inverse(grams)))
             del grams
         invs = [inv for _, inv in sorted(invs, key=lambda t: t[0])]
@@ -249,14 +278,14 @@ def block_coordinate_descent(
     for epoch in range(start_epoch, num_iters):
         for i, (s, e) in enumerate(blocks):
             a_b = A[:, s:e]
-            aw = _weighted(a_b, row_weights)
+            aw = _weighted(a_b, w_rows)
             if invs is not None:
-                R, W[i] = _solve_update(a_b, aw, invs[i], R, W[i])
+                R, W[i] = _solve_update(a_b, aw, invs[i], R, W[i], precision)
             else:
-                r_plus = R + solver_matmul(a_b, W[i])
-                rhs = solver_matmul(aw.T, r_plus)
-                W[i] = torch.cholesky_solve(rhs, torch.linalg.cholesky(ridge_gram(a_b, aw, lam)))
-                R = r_plus - solver_matmul(a_b, W[i])
+                r_plus = R + solver_matmul(a_b, W[i], precision)
+                rhs = solver_matmul(aw.T, r_plus, precision)
+                W[i] = torch.cholesky_solve(rhs, torch.linalg.cholesky(ridge_gram(a_b, aw, lam, precision)))
+                R = r_plus - solver_matmul(a_b, W[i], precision)
         _end_epoch(epoch, R, W, lam, row_weights, checkpoint_dir, fingerprint)
     return W, blocks
 
@@ -278,6 +307,26 @@ def host_matrix(A) -> torch.Tensor:
         return torch.from_numpy(arr)
 
 
+# Rows of a block prepared at a time: 16 MiB of float32 input. The host's
+# float32-to-bfloat16 subtraction runs several times slower over a whole
+# 256 MiB block than in panels of this size; float32 output takes about the
+# same time either way.
+_PREP_PANEL_BYTES = 16 << 20
+
+
+def prepare_block(A: torch.Tensor, center: Optional[torch.Tensor], s: int, e: int, out: torch.Tensor) -> None:
+    """Writes columns ``s:e`` of the float32 host matrix ``A``, minus
+    ``center[s:e]``, into ``out`` in ``out``'s dtype: centered in float32,
+    then rounded once. Rounding first would leave the centered values with
+    the rounding error of the uncentered magnitude."""
+    rows = max(1, _PREP_PANEL_BYTES // (4 * (e - s)))
+    for r in range(0, A.shape[0], rows):
+        if center is None:
+            out[r : r + rows].copy_(A[r : r + rows, s:e])
+        else:
+            torch.sub(A[r : r + rows, s:e], center[s:e], out=out[r : r + rows])
+
+
 def block_coordinate_descent_streamed(
     A_host,
     B: torch.Tensor,
@@ -289,13 +338,18 @@ def block_coordinate_descent_streamed(
     col_center=None,
     checkpoint_every: int = CHECKPOINT_EVERY,
     overlap: bool = True,
+    precision: Optional[str] = None,
+    storage_dtype: Optional[str] = None,
 ) -> Tuple[List[torch.Tensor], List[Tuple[int, int]]]:
     """The solve of ``block_coordinate_descent`` with ``A_host`` (n, d) left
     in host memory, uncopied and unmodified, and B, W, R, the row weights and
-    the inverses on ``B``'s device. ``col_center`` (d,) is subtracted from
-    each block as it is prepared. ``overlap=False`` prepares, copies and
-    updates one block at a time, waiting for each, to measure what the
-    double buffer buys; the two give the same bits."""
+    the inverses on ``B``'s device. Each block is prepared in the storage
+    dtype (``prepare_block``), with ``col_center`` (d,) subtracted when
+    given. ``overlap=False`` prepares, copies and updates one block at a
+    time, waiting for each, to measure what the double buffer buys; the two
+    give the same bits."""
+    precision = solver_precision(precision)
+    dtype = storage_dtype_of(storage_dtype)
     A = host_matrix(A_host)
     n, d = A.shape
     if B.shape[0] != n:
@@ -305,6 +359,7 @@ def block_coordinate_descent_streamed(
     blocks = [(s, min(s + block_size, d)) for s in range(0, d, block_size)]
     nb = len(blocks)
 
+    w_rows = None if row_weights is None else row_weights.to(dtype)
     W = [B.new_zeros((e - s, k)) for s, e in blocks]
     R = B.clone()
     invs: List[Optional[torch.Tensor]] = [None] * nb
@@ -313,7 +368,7 @@ def block_coordinate_descent_streamed(
     if checkpoint_dir is not None:
         shift = 0.0 if center is None else 2.0 * float(center.sum())
         a_probe = float(A[0].sum() + A[-1].sum()) - shift
-        fingerprint = _fingerprint(n, d, k, block_size, lam, row_weights is not None, a_probe, B)
+        fingerprint = _fingerprint(n, d, k, block_size, lam, row_weights is not None, dtype, a_probe, B)
         state = _latest_epoch(checkpoint_dir, fingerprint, device)
         if state is not None:
             start_epoch, W, R = state["epoch"], list(state["W"]), state["R"]
@@ -339,11 +394,7 @@ def block_coordinate_descent_streamed(
 
     def prep(i: int):
         s, e = blocks[i]
-        if center is None:
-            write = lambda out: out.copy_(A[:, s:e])  # noqa: E731
-        else:
-            write = lambda out: torch.sub(A[:, s:e], center[s:e], out=out)  # noqa: E731
-        return stager.fill((n, e - s), torch.float32, write)
+        return stager.fill((n, e - s), dtype, lambda out: prepare_block(A, center, s, e, out))
 
     src = PrefetchIterator((prep(i) for _, i in visits)) if overlap and visits else None
     times = []
@@ -360,11 +411,11 @@ def block_coordinate_descent_streamed(
             a_b = stager.ready(cur)
             first = invs[i] is None
             t0 = stamp(device)
-            aw = _weighted(a_b, row_weights)
+            aw = _weighted(a_b, w_rows)
             if first:
-                R, W[i], invs[i] = _first_update(a_b, aw, R, W[i], lam)
+                R, W[i], invs[i] = _first_update(a_b, aw, R, W[i], lam, precision)
             else:
-                R, W[i] = _solve_update(a_b, aw, invs[i], R, W[i])
+                R, W[i] = _solve_update(a_b, aw, invs[i], R, W[i], precision)
             del aw  # a block's bytes, freed before the next block is allocated
             if timer is not None:
                 times.append((epoch, i, first, cur._replace(tensor=None), t0, stamp(device)))

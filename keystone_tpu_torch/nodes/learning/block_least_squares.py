@@ -8,15 +8,20 @@ Counterpart of ``keystone_tpu/nodes/learning/block_least_squares.py``:
   d, capped at 4,096 for CPU tensors and 8,192 on the card, and halved
   until the cached inverses fit a quarter of the memory budget;
 - ``BlockLeastSquaresEstimator.fit``, the dense path: features and labels
-  centered (weighted means when rows are weighted), block coordinate
-  descent (``linalg/bcd.py``), and the intercept ``b = ȳ_w − x̄_wᵀW``;
+  centered (weighted means when rows are weighted), the centered features
+  stored in the solver's storage dtype, block coordinate descent
+  (``linalg/bcd.py``), and the intercept ``b = ȳ_w − x̄_wᵀW``;
 - ``BlockLeastSquaresEstimator.fit`` streamed (``stream``, ``:173-221``):
   the features stay in host memory, the caller's array, uncopied; the
   feature means come from a host matvec and are subtracted from each block
   as it is prepared (``col_center``), the label means from the labels on
   the device, and ``linalg/bcd.py::block_coordinate_descent_streamed``
-  solves. ``stream=None`` streams when the features' bytes exceed half the
-  memory budget (6 GiB), as the reference's auto rule does;
+  solves. ``stream=None`` streams when the features' float32 bytes exceed
+  half the memory budget (6 GiB), wherever they lie, as the reference's
+  auto rule does (``:167-177``); features on the card are then copied to
+  the host first;
+- ``precision`` and ``storage_dtype``: the solver's modes (``config.py``),
+  passed to either solve; W stays float32;
 - ``checkpoint_dir``: epoch checkpoints of either solve, and the streamed
   solve's mid-epoch snapshots, resumed by a later fit of the same problem;
 - ``BlockWeightedLeastSquaresEstimator``: class-rebalanced row weights,
@@ -34,7 +39,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from keystone_tpu_torch.config import as_input, default_dtype, resolve_device
+from keystone_tpu_torch.config import as_input, default_dtype, resolve_device, solver_precision
 from keystone_tpu_torch.linalg.bcd import (
     block_coordinate_descent,
     block_coordinate_descent_streamed,
@@ -43,6 +48,7 @@ from keystone_tpu_torch.linalg.bcd import (
 from keystone_tpu_torch.linalg.row_matrix import (
     HBM_BUDGET_BYTES,
     solver_matmul,
+    storage_dtype,
     weighted_col_sums,
 )
 from keystone_tpu_torch.utils.stages import mark
@@ -89,11 +95,14 @@ def resolve_block_size(block_size, d: int, device) -> int:
 class BlockLeastSquaresEstimator(LabelEstimator):
     """The dense ``fit`` runs on the device of the data tensor it is given;
     host arrays go to ``device`` (``cuda`` unless named). The streamed fit
-    keeps host features on the host and solves on ``device``."""
+    keeps host features on the host and solves on ``device``, or on the
+    card the features came from. ``precision`` and ``storage_dtype`` left
+    at None take ``config.py``'s defaults."""
 
     def __init__(self, block_size="auto", num_iters: int = 1, lam: float = 0.0,
                  fit_intercept: bool = True, device=None,
-                 checkpoint_dir: Optional[str] = None, stream: Optional[bool] = None):
+                 checkpoint_dir: Optional[str] = None, stream: Optional[bool] = None,
+                 precision: Optional[str] = None, storage_dtype: Optional[str] = None):
         self.block_size = block_size
         self.num_iters = num_iters
         self.lam = lam
@@ -101,6 +110,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.device = device
         self.checkpoint_dir = checkpoint_dir
         self.stream = stream
+        self.precision = precision
+        self.storage_dtype = storage_dtype
 
     def _weights(self, Y: torch.Tensor) -> Optional[torch.Tensor]:
         return None
@@ -108,11 +119,11 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     def fit(self, data, labels) -> BlockLinearMapper:
         stream = self.stream
         if stream is None:
-            on_host = not isinstance(data, torch.Tensor) or data.device.type == "cpu"
             itemsize = torch.finfo(default_dtype).bits // 8
-            stream = on_host and math.prod(np.shape(data)) * itemsize > HBM_BUDGET_BYTES // 2
+            stream = math.prod(np.shape(data)) * itemsize > HBM_BUDGET_BYTES // 2
         if stream:
             return self._fit_streamed(data, labels)
+        precision = solver_precision(self.precision)
         X = as_input(data, self.device)
         Y = as_input(labels, X.device).to(X.device)
         weights = self._weights(Y)
@@ -124,25 +135,34 @@ class BlockLeastSquaresEstimator(LabelEstimator):
                 y_mean = Y.sum(dim=0) / Y.shape[0]
             else:
                 wsum = torch.clamp_min(weights.sum(), 1e-12)
-                x_mean = weighted_col_sums(X, weights) / wsum
-                y_mean = weighted_col_sums(Y, weights) / wsum
-            X, Y = X - x_mean, Y - y_mean
+                x_mean = weighted_col_sums(X, weights, precision) / wsum
+                y_mean = weighted_col_sums(Y, weights, precision) / wsum
+            # Centered in float32, rounded once into the storage dtype.
+            A = torch.sub(X, x_mean, out=torch.empty(X.shape, dtype=storage_dtype(self.storage_dtype),
+                                                     device=X.device))
+            Y = Y - y_mean
             mark("centering")
+        else:
+            A = X.to(storage_dtype(self.storage_dtype))
         W_blocks, blocks = block_coordinate_descent(
-            X, Y,
-            block_size=resolve_block_size(self.block_size, X.shape[1], X.device),
+            A, Y,
+            block_size=resolve_block_size(self.block_size, A.shape[1], A.device),
             num_iters=self.num_iters,
             lam=self.lam,
             row_weights=weights,
             checkpoint_dir=self.checkpoint_dir,
+            precision=precision,
         )
         W = torch.cat(W_blocks, dim=0)
-        b = None if y_mean is None else y_mean - solver_matmul(x_mean[None, :], W)[0]
+        b = None if y_mean is None else y_mean - solver_matmul(x_mean[None, :], W, precision)[0]
         return BlockLinearMapper(W, blocks, b, device=W.device)
 
     def _fit_streamed(self, data, labels) -> BlockLinearMapper:
-        X = host_matrix(data)
-        device = resolve_device(self.device)
+        on_card = isinstance(data, torch.Tensor) and data.device.type != "cpu"
+        device = resolve_device(data.device if on_card else self.device)
+        # Features on the card come to the host, as the reference's
+        # np.asarray brings a device array there.
+        X = host_matrix(data.cpu() if on_card else data)
         Y = as_input(labels, device).to(device)
         weights = self._weights(Y)
         x_mean = y_mean = None
@@ -166,17 +186,22 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             row_weights=weights,
             checkpoint_dir=self.checkpoint_dir,
             col_center=x_mean,
+            precision=self.precision,
+            storage_dtype=self.storage_dtype,
         )
         W = torch.cat(W_blocks, dim=0)
-        b = None if y_mean is None else y_mean - solver_matmul(x_mean.to(device)[None, :], W)[0]
+        b = None if y_mean is None else y_mean - solver_matmul(
+            x_mean.to(device)[None, :], W, solver_precision(self.precision))[0]
         return BlockLinearMapper(W, blocks, b, device=device)
 
 
 class BlockWeightedLeastSquaresEstimator(BlockLeastSquaresEstimator):
     def __init__(self, block_size="auto", num_iters: int = 1, lam: float = 0.0,
                  mixture_weight: float = 0.5, fit_intercept: bool = True, device=None,
-                 checkpoint_dir: Optional[str] = None, stream: Optional[bool] = None):
-        super().__init__(block_size, num_iters, lam, fit_intercept, device, checkpoint_dir, stream)
+                 checkpoint_dir: Optional[str] = None, stream: Optional[bool] = None,
+                 precision: Optional[str] = None, storage_dtype: Optional[str] = None):
+        super().__init__(block_size, num_iters, lam, fit_intercept, device, checkpoint_dir, stream,
+                         precision, storage_dtype)
         self.mixture_weight = mixture_weight
 
     def _weights(self, Y: torch.Tensor) -> Optional[torch.Tensor]:

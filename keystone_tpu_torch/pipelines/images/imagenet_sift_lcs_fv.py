@@ -13,26 +13,37 @@ Fitting (the reference's ``run``) goes in two steps:
   training set's features, through ``Pipeline.and_then(estimator, data,
   labels)``.
 
-``run`` fits on synthetic images and scores the test split; ``evaluate``
-gives its top-k and top-1 errors. With ``stream`` (the reference's
-``run_streamed``, ``:167-338``) the featurizer is fitted on the first
-``fit_sample_images`` training images (``fit_streamed``), the training
-set is featurized in batches of ``stream_batch`` through
-``apply_batches``, only its features are kept, on the host, and the head
-is solved streamed from there; ``score_streamed`` scores the test set
-batch by batch. With ``augment`` each test image is scored as the average
-over its ten center and corner views (``CenterCornerPatcher``, crop 7/8 of
-the side unless ``augment_crop``), on either path. Full width, as
-``resolve_scale`` sets it for real data: ``pca_dims=64``, ``gmm_k=256``,
-so 2·(2·256·64) = 65,536 features, solved in 3 epochs over 8 blocks of
-8,192 on the card.
+``run`` fits on the training images and scores the test split;
+``evaluate`` gives its top-k and top-1 errors. The images are synthetic,
+or with ``data_path`` real ones (the reference's ``:345-351``): the
+training and test directories of per-synset tars or directories of JPEGs
+that ``loaders/imagenet.py`` reads, labelled by the map at
+``label_map_path``, decoded at 256×256. With ``stream`` (the reference's
+``run_streamed``, ``:167-338``) the featurizer is fitted on
+``fit_sample_images`` training images (``fit_streamed``; on real data a
+class-balanced sample), the training set is featurized in batches of
+``stream_batch`` through ``apply_batches`` (on real data decoded by
+``ImageNetLoader.stream_batches`` on its own thread), only its features
+are kept, on the host, and the head is solved streamed from there;
+``score_streamed`` scores the test set batch by batch. With ``augment``
+each test image is scored as the average over its ten center and corner
+views (``CenterCornerPatcher``, crop 7/8 of the side unless
+``augment_crop``), on either path. Full width, as ``resolve_scale`` sets
+it when ``data_path`` is given: ``pca_dims=64``, ``gmm_k=256``, so
+2·(2·256·64) = 65,536 features, solved in 3 epochs over 8 blocks of 8,192
+on the card.
+
+The port's dense SIFT runs on the device (``ops/sift.py``): it is the
+counterpart of the reference's ``sift_backend="xla"``, not of its default
+host ``native`` backend, and there is no backend option.
 
 Run ``python -m keystone_tpu_torch.pipelines.images.imagenet_sift_lcs_fv``
 to serve synthetic requests with seeded random parameters, or pass
 ``--params file.npz`` with arrays under the keys ``convert.py`` documents;
 ``--fit`` fits on synthetic images instead and prints the errors;
-``--stream``, ``--augment`` and ``--checkpoint-dir`` set the fit's
-options (the first two imply ``--fit``).
+``--data DIR --test-data DIR --label-map FILE`` fits and scores on real
+images; ``--stream``, ``--augment`` and ``--checkpoint-dir`` set the
+fit's options (the first two imply ``--fit``).
 """
 
 from __future__ import annotations
@@ -73,6 +84,11 @@ HEAD_BLOCK = 8192
 
 @dataclass
 class ImageNetSiftLcsFVConfig:
+    # Real images: training and test directories and the synset label map
+    # (None: synthetic images).
+    data_path: Optional[str] = None
+    test_data_path: Optional[str] = None
+    label_map_path: Optional[str] = None
     sift_step: int = 4
     sift_bin: int = 4
     lcs_step: int = 4
@@ -115,11 +131,11 @@ REAL_SCALE = dict(gmm_k=256, num_iters=3)
 SYNTHETIC_SCALE = dict(gmm_k=16, num_iters=2)
 
 
-def resolve_scale(conf: ImageNetSiftLcsFVConfig, real: bool = False) -> ImageNetSiftLcsFVConfig:
-    """Fill gmm_k and num_iters at the reference's real-data scale or its
-    synthetic scale (real ImageNet loading is not ported; ``run`` fits on
-    synthetic images). An explicit value always wins."""
-    scale = REAL_SCALE if real else SYNTHETIC_SCALE
+def resolve_scale(conf: ImageNetSiftLcsFVConfig) -> ImageNetSiftLcsFVConfig:
+    """Fill gmm_k and num_iters at the reference's real-data scale when
+    ``data_path`` is set, else at its synthetic scale. An explicit value
+    always wins."""
+    scale = REAL_SCALE if conf.data_path is not None else SYNTHETIC_SCALE
     return replace(conf, **{key: value if getattr(conf, key) is None else getattr(conf, key)
                             for key, value in scale.items()})
 
@@ -315,7 +331,10 @@ def fit_streamed(conf: ImageNetSiftLcsFVConfig, fit_sample, train_batches, num_c
             feats.append(F.cpu().numpy())
             labels.append(np.asarray(y))
     if not feats:
-        raise ValueError("the training stream produced no batches")
+        raise ValueError(
+            "the training stream produced no batches: check that the data "
+            "directory's synsets appear in the label map"
+        )
     mark("featurizing the training set")
     # Assembled in place, each batch freed as it lands: the host holds the
     # feature matrix and one batch, not twice the matrix.
@@ -370,23 +389,37 @@ def _result(conf, top_k_error, top1, seconds, tail="") -> dict:
     }
 
 
+def _label_map(conf: ImageNetSiftLcsFVConfig) -> dict:
+    if not (conf.test_data_path and conf.label_map_path):
+        raise ValueError("real data requires test path and label map")
+    return ImageNetLoader.load_label_map(conf.label_map_path)
+
+
 def run_streamed(conf: ImageNetSiftLcsFVConfig, device=None, save_params: Optional[str] = None) -> dict:
-    """The reference's ``run_streamed`` on synthetic images: ``fit_streamed``
-    on batches of ``stream_batch`` training images, then ``score_streamed``
-    on the test split; its result keys, ``num_views`` with ``augment``."""
+    """The reference's ``run_streamed``: ``fit_streamed`` on batches of
+    ``stream_batch`` training images, then ``score_streamed`` on the test
+    split; its result keys, ``num_views`` with ``augment``. On real data the
+    featurizer's sample is ``load_balanced_sample``, the batches come from
+    ``stream_batches`` and the classes are the label map's."""
     conf = resolve_scale(conf)
     device = resolve_device(device)
-    train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes)
+    if conf.data_path:
+        label_map = _label_map(conf)
+        fit_sample = ImageNetLoader.load_balanced_sample(conf.data_path, label_map, total=conf.fit_sample_images)
+        num_classes = max(label_map.values()) + 1
+        train_batches = ImageNetLoader.stream_batches(conf.data_path, label_map, batch_size=conf.stream_batch)
+        test_batches = ImageNetLoader.stream_batches(conf.test_data_path, label_map, batch_size=conf.stream_batch)
+    else:
+        train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes)
+        fit_sample = train.data[: conf.fit_sample_images]
+        num_classes = conf.synthetic_classes
+        train_batches = BatchIterator.from_arrays(train.data, train.labels, conf.stream_batch)
+        test_batches = BatchIterator.from_arrays(test.data, test.labels, conf.stream_batch)
+    mark("loading the featurizer's sample")
+    side = fit_sample.shape[1]
     t0 = time.perf_counter()
-    scored = fit_streamed(
-        conf, train.data[: conf.fit_sample_images],
-        BatchIterator.from_arrays(train.data, train.labels, conf.stream_batch),
-        conf.synthetic_classes, device,
-    )
-    scores, labels = score_streamed(
-        scored, conf, BatchIterator.from_arrays(test.data, test.labels, conf.stream_batch),
-        train.data.shape[1], device,
-    )
+    scored = fit_streamed(conf, fit_sample, train_batches, num_classes, device)
+    scores, labels = score_streamed(scored, conf, test_batches, side, device)
     with torch.inference_mode():
         topk = TopKClassifier(conf.top_k)(torch.from_numpy(scores)).numpy()
     top_k_error, top1 = _errors(topk, labels)
@@ -395,21 +428,31 @@ def run_streamed(conf: ImageNetSiftLcsFVConfig, device=None, save_params: Option
         np.savez(save_params, **params_to_numpy(scored))
     if not conf.augment:
         return _result(conf, top_k_error, top1, elapsed, " (streamed)")
-    views = build_tta(conf, train.data.shape[1])[0].num_views
+    views = build_tta(conf, side)[0].num_views
     return {**_result(conf, top_k_error, top1, elapsed, f" (streamed, TTA x{views})"), "num_views": views}
 
 
 def run(conf: ImageNetSiftLcsFVConfig, device=None, save_params: Optional[str] = None) -> dict:
-    """Fit on synthetic images and score the test split (``run_streamed``
-    when ``conf.stream``); the reference's result keys. ``save_params``
-    writes the fitted parameters as an npz that ``--params`` serves."""
+    """Fit on the training images and score the test split
+    (``run_streamed`` when ``conf.stream``); the reference's result keys.
+    On real data both splits are loaded whole, and the classes are those
+    their labels reach. ``save_params`` writes the fitted parameters as an
+    npz that ``--params`` serves."""
     conf = resolve_scale(conf)
     device = resolve_device(device)
     if conf.stream:
         return run_streamed(conf, device, save_params)
-    train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes)
+    if conf.data_path:
+        label_map = _label_map(conf)
+        train = ImageNetLoader.load(conf.data_path, label_map)
+        test = ImageNetLoader.load(conf.test_data_path, label_map)
+        num_classes = int(max(train.labels.max(), test.labels.max())) + 1
+    else:
+        train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes)
+        num_classes = conf.synthetic_classes
+    mark("loading the images")
     t0 = time.perf_counter()
-    scored = fit(conf, train, conf.synthetic_classes, device)
+    scored = fit(conf, train, num_classes, device)
     top_k_error, top1 = evaluate(scored, conf, test, device)
     elapsed = time.perf_counter() - t0
     if save_params:
@@ -426,12 +469,17 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="Serve or fit ImageNetSiftLcsFV (PyTorch/CUDA port)")
     p.add_argument("--fit", action="store_true",
                    help="fit on synthetic images and print the test errors, instead of serving")
+    p.add_argument("--data", dest="data_path",
+                   help="fit on the real training images here (implies --fit)")
+    p.add_argument("--test-data", dest="test_data_path", help="with --data: the test images")
+    p.add_argument("--label-map", dest="label_map_path",
+                   help="with --data: lines of '<synset> <label>'")
     p.add_argument("--params", help="npz of fitted parameters (keys as in convert.py)")
     p.add_argument("--save-params", help="with --fit: write the fitted parameters to this npz")
     p.add_argument("--device", default="cuda")
     p.add_argument("--gmm-k", type=int, default=None,
-                   help="GMM components per branch (default: 256 to serve; "
-                   "16 to fit on synthetic images)")
+                   help="GMM components per branch (default: 256 to serve or to fit on "
+                   "real images; 16 to fit on synthetic images)")
     p.add_argument("--pca-dims", type=int, default=64)
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--image-size", type=int, default=256)
@@ -457,10 +505,11 @@ def main(argv=None):
     a = p.parse_args(argv)
 
     device = resolve_device(a.device)
-    if a.fit or a.stream or a.augment:
+    if a.fit or a.stream or a.augment or a.data_path:
         out = run(
             ImageNetSiftLcsFVConfig(
-                pca_dims=a.pca_dims, gmm_k=a.gmm_k, lam=a.lam,
+                data_path=a.data_path, test_data_path=a.test_data_path,
+                label_map_path=a.label_map_path, pca_dims=a.pca_dims, gmm_k=a.gmm_k, lam=a.lam,
                 mixture_weight=a.mixture_weight, top_k=a.top_k, seed=a.seed,
                 synthetic_n=a.synthetic_n, synthetic_classes=a.synthetic_classes,
                 augment=a.augment, augment_crop=a.augment_crop, stream=a.stream,

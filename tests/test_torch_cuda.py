@@ -20,6 +20,14 @@ move bytes, and the updates run in one order on one stream. A pinned
 staging buffer is not refilled while its copy is in flight.
 ``apply_batches`` on the card is held against the CPU at rtol 1e-5.
 
+The solver's products: bfloat16 operands multiply into a float32 result,
+within float32 summation rounding of the exact products (each is exact in
+float32); ``high`` runs TF32 (10 mantissa bits, so within 1e-2 of the
+largest |value| of ``highest``'s, and not equal to it) and leaves TF32 off
+after it; ``highest`` refuses TF32 turned on from outside. Features on the
+card over half the memory budget (patched small) are streamed from the
+host, and the head matches the CPU's streamed fit at rtol 1e-4.
+
 A small fit of the whole pipeline on the card is held against the same fit
 on the CPU: both draw the same random numbers, and differ only in rounding.
 PCA components up to sign at atol 1e-3 (rounding rotates components whose
@@ -220,3 +228,48 @@ def test_apply_batches_on_the_card_equals_the_cpu(cuda):
     got = [o.cpu() for o, _ in pipe.apply_batches(BatchIterator.from_arrays(X, None, 16), device=cuda)]
     want = pipe.apply_in_batches(X, batch_size=16, device="cpu")
     torch.testing.assert_close(torch.cat(got), want, rtol=1e-5, atol=1e-6)
+
+
+def test_solver_products_on_the_card(cuda):
+    """bfloat16 operands multiply into float32 (cuBLAS ``out_dtype``); ``high``
+    turns TF32 on for its own product only; ``highest`` refuses TF32 set
+    from outside."""
+    from keystone_tpu_torch.linalg.row_matrix import solver_matmul
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(512, 1024)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.normal(size=(1024, 256)).astype(np.float32)).to(cuda)
+    got = solver_matmul(x.to(torch.bfloat16), y)
+    assert got.dtype == torch.float32
+    exact = x.to(torch.bfloat16).double() @ y.to(torch.bfloat16).double()
+    torch.testing.assert_close(got.double(), exact, rtol=0, atol=1024 * 2.0**-24 * float(exact.abs().max()))
+    highest = solver_matmul(x, y, "highest")
+    high = solver_matmul(x, y, "high")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.equal(high, highest)  # TF32 rounds the operands to 10 bits
+    torch.testing.assert_close(high, highest, rtol=0, atol=1e-2 * float(highest.abs().max()))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            solver_matmul(x, y, "highest")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_the_auto_rule_streams_features_on_the_card(cuda, monkeypatch):
+    import keystone_tpu_torch.nodes.learning.block_least_squares as bls
+    from keystone_tpu_torch.nodes.learning.block_least_squares import BlockWeightedLeastSquaresEstimator
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(300, 64)).astype(np.float32)
+    Y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, size=300)] * 2 - 1
+    calls = []
+    real = bls.block_coordinate_descent_streamed
+    monkeypatch.setattr(bls, "block_coordinate_descent_streamed", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(bls, "HBM_BUDGET_BYTES", 2 * X.nbytes - 2)
+    est = BlockWeightedLeastSquaresEstimator(block_size=16, num_iters=2, lam=0.1)
+    got = est.fit(torch.from_numpy(X).to(cuda), torch.from_numpy(Y).to(cuda))
+    assert calls == [1] and got.W.device.type == "cuda"
+    want = BlockWeightedLeastSquaresEstimator(block_size=16, num_iters=2, lam=0.1, device="cpu",
+                                              stream=True).fit(X, Y)
+    torch.testing.assert_close(got.W.cpu(), want.W, rtol=1e-4, atol=1e-4)

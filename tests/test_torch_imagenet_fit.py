@@ -194,11 +194,10 @@ def test_fitted_pipeline_round_trips_and_serves():
 
 @pytest.mark.parametrize("data_path, gmm_k, num_iters", [(None, None, None), ("x", None, None), ("x", 7, 5)])
 def test_resolve_scale_matches_the_reference(data_path, gmm_k, num_iters):
-    got = port.resolve_scale(port.ImageNetSiftLcsFVConfig(gmm_k=gmm_k, num_iters=num_iters),
-                             real=data_path is not None)
+    got = port.resolve_scale(port.ImageNetSiftLcsFVConfig(data_path=data_path, gmm_k=gmm_k, num_iters=num_iters))
     want = ref.resolve_scale(ref.ImageNetSiftLcsFVConfig(data_path=data_path, gmm_k=gmm_k, num_iters=num_iters))
     assert (got.gmm_k, got.num_iters, got.feature_dim) == (want.gmm_k, want.num_iters, 2 * 2 * want.gmm_k * 64)
-    for field in ("pca_dims", "gmm_iters", "descriptor_sample", "lam", "mixture_weight",
+    for field in ("data_path", "pca_dims", "gmm_iters", "descriptor_sample", "lam", "mixture_weight",
                   "block_size", "top_k", "seed", "synthetic_n", "synthetic_classes"):
         assert getattr(got, field) == getattr(want, field), field
 

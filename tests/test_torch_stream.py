@@ -305,6 +305,8 @@ def test_streamed_estimator_matches_the_reference(mixture_weight):
 
 
 def test_auto_stream_rule_streams_just_above_half_the_budget(monkeypatch):
+    """The reference's rule: the data's float32 bytes over half the budget
+    stream, wherever the data lies."""
     assert pbls.HBM_BUDGET_BYTES // 2 == 6 * 2**30
     X, Y, _ = _problem(n=64, d=16, seed=10)
     calls = []
@@ -320,6 +322,19 @@ def test_auto_stream_rule_streams_just_above_half_the_budget(monkeypatch):
     assert calls == [1]
     est.fit(torch.from_numpy(X), torch.from_numpy(Y))  # a host tensor streams too
     assert calls == [1, 1]
+    est.fit(X.astype(np.float64), Y)  # float32 bytes decide, not the array's own
+    assert calls == [1, 1, 1]
+    # So does a tensor that is not on the host (here one with no storage:
+    # the rule reads its shape only).
+    routed = []
+    monkeypatch.setattr(BlockWeightedLeastSquaresEstimator, "_fit_streamed",
+                        lambda self, data, labels: routed.append(data.device.type))
+    est.fit(torch.empty(X.shape, device="meta"), torch.from_numpy(Y))
+    assert routed == ["meta"]
+    monkeypatch.setattr(pbls, "HBM_BUDGET_BYTES", 2 * X.nbytes)
+    with pytest.raises(NotImplementedError):  # the dense path, which a meta tensor cannot run
+        est.fit(torch.empty(X.shape, device="meta"), torch.from_numpy(Y))
+    assert routed == ["meta"]
 
 
 # -- checkpoints ----------------------------------------------------------------
@@ -393,6 +408,23 @@ def test_a_snapshot_of_another_problem_is_ignored_with_a_warning(monkeypatch, tm
         got = torch.cat(block_coordinate_descent_streamed(X, torch.from_numpy(Y), 16, 3, lam=0.2,
                                                           checkpoint_dir=ck, checkpoint_every=2)[0])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["dense", "streamed"])
+@pytest.mark.parametrize("lam", [1.9e-3, 0.0])
+def test_a_checkpoint_of_another_lambda_is_ignored_with_a_warning(tmp_path, lam, streamed):
+    """λ is compared exactly: the probes' relative 1e-3 does not apply to it."""
+    X, Y, _ = _problem(n=100, d=32, seed=15)
+    A, B = torch.from_numpy(X), torch.from_numpy(Y)
+    ck = str(tmp_path / "ck")
+    block_coordinate_descent(A, B, 16, 1, lam=1e-3, checkpoint_dir=ck)
+    want = torch.cat(block_coordinate_descent(A, B, 16, 1, lam=lam)[0])
+    with pytest.warns(UserWarning, match="different solve"):
+        if streamed:
+            got, _ = block_coordinate_descent_streamed(X, B, 16, 1, lam=lam, checkpoint_dir=ck)
+        else:
+            got, _ = block_coordinate_descent(A, B, 16, 1, lam=lam, checkpoint_dir=ck)
+    torch.testing.assert_close(torch.cat(got), want, **DENSE_TOL)
 
 
 def test_the_estimator_passes_checkpoints_through(tmp_path):

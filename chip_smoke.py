@@ -18,10 +18,21 @@ script exits non-zero:
    again and times both;
 4. serves 256×256 synthetic images through the 65,536-feature
    ImageNetSiftLcsFV pipeline with 1,000 classes and seeded random
-   parameters (``CompiledPipeline(max_batch=64)``, requests of 1, 3, 16 and
-   64 images), counting kernel launches on that path, and checks the
-   scores against the same pipeline with the plain Fisher-vector version on
-   the card and against the port on the CPU;
+   parameters through ``CompiledPipeline(max_batch=64)``: the memory plan,
+   one CUDA graph per bucket (capture seconds and pool bytes per bucket,
+   device memory with all of them resident), requests of 1, 3, 16 and 64
+   images through the graphs (the main path: 2 Fisher-vector launches a
+   replay, and a ``torch.profiler`` trace of one replay listing each of
+   the kernel's two kernels twice), their median walls beside the eager
+   chain's on the same requests, the eager stage breakdown and the
+   profiler's idle share at 1 and 64 images for both; every bucket's
+   graphed top-5 and scores bit-equal to the eager chain's; a
+   ``PipelineService`` (8 client threads × 64 one-image requests, in a
+   burst and in a closed loop: requests/s, p50 and p99, batches and rows
+   a batch, no stranded future, every answer held against the engine's
+   direct call); and the scores
+   against the same pipeline with the plain Fisher-vector version on the
+   card and against the port on the CPU;
 5. fits the pipeline at reduced size (64×64 images, ``gmm_k=16``,
    ``pca_dims=16``, 16 classes, 256 images) on the card and on the CPU from
    one seed, and checks that the PCA (up to sign), the GMM and the test
@@ -36,6 +47,10 @@ script exits non-zero:
    last block's normal equations; then serves the fitted pipeline, carried through
    ``convert.py``, with ``CompiledPipeline`` for requests of 1 and 64
    images and checks its top-k against the fitted pipeline's direct call;
+   then the precision ladder on the fitted pipeline: engines at ``f32``,
+   ``f32h`` and ``bf16``, every bucket bit-equal to its precision's eager
+   chain, their walls for 1 and 64 images and ``qualify``'s report on the
+   512 test images (with their labels it must pass);
 7. on the same images, the head solved streamed from host features
    (``stream=True``) against the eager one on the same features: epoch
    seconds and per-block prep, copy and update medians, double-buffered
@@ -44,7 +59,9 @@ script exits non-zero:
    1e-3, W's distance, the last block's normal equations, test errors
    within 0.02; then ``fit_streamed`` and ``score_streamed`` end to end
    with checkpoints (stage seconds, save sizes and seconds, launches, plain
-   and ten-view TTA errors, TTA scores against the views scored
+   scoring with the head through ``_scoring_engine`` (its warm-up and
+   capture seconds) and ten-view TTA
+   errors, plain and TTA scores against the direct call and the views scored
    directly), and a solve stopped after 12 block updates by a hook here
    and resumed from its checkpoints (W within 1e-6 of the uninterrupted);
    the kernel phase also holds and times the kernel at the streamed
@@ -64,8 +81,8 @@ script exits non-zero:
    ``load`` bit for bit, and ``run_streamed`` on the JPEGs end to end
    (65,536 features, 3 epochs, 1,000 classes, batches of 256, a balanced
    sample of 512);
-10. one JSON line with every kernel's launches (on every path: serving,
-   fitting, serving what was fitted, the streamed fit, plain and TTA
+10. one JSON line with every kernel's launches (on every path: serving
+   through graphs, the service, fitting, serving what was fitted, the streamed fit, plain and TTA
    streamed scoring, the streamed fit on real data), error and times: ``ms`` is the kernel's device time
    per call at B=64 (``torch.profiler``), ``call_ms`` the same call between
    CUDA events, host included.
@@ -78,6 +95,7 @@ and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -127,6 +145,13 @@ TTA_M = 2809  # descriptors of a 224x224 view at step 4, bin 4
 REQUESTS = (1, 3, 16, 64)
 BUCKETS = (1, 4, 16, 64)  # the serving buckets those requests reach
 REPEATS = 5  # calls of each request size
+# The service run: client threads, each submitting 64 one-image requests.
+# Its answers come from other buckets than the direct call's, so the
+# Fisher-vector kernel splits their sums otherwise: scores are held at
+# SCORE_RTOL, and top-5 sets where the 5th and 6th scores are further
+# apart than SERVICE_GAP_RTOL x max|score|, ten times that tolerance.
+SERVICE_CLIENTS = 8
+SERVICE_GAP_RTOL = 1e-2
 
 
 def phase(name: str) -> None:
@@ -324,21 +349,22 @@ def stage_ms(pipe, images, torch) -> list:
     return rows
 
 
-def profile_requests(engine, images, torch, calls: int = 3) -> None:
-    """Device busy and idle share of ``calls`` back-to-back requests from a
-    ``torch.profiler`` trace: the union of the device intervals of every
-    kernel and copy, over the host wall time of the window, and the device
-    time of the costliest kernels by name."""
+def profile_requests(fn, n: int, label: str, torch, calls: int = 3) -> float:
+    """Device busy and idle share of ``calls`` back-to-back requests
+    ``fn()`` of ``n`` images from a ``torch.profiler`` trace: the union of
+    the device intervals of every kernel and copy, over the host wall time
+    of the window, and the device time of the costliest kernels by name.
+    Returns the idle share (nan when the trace holds no device activity,
+    or none of the Fisher-vector kernels every request runs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = images.shape[0]
-    engine(images)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            engine(images)
+            fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     spans = sorted(
@@ -346,10 +372,10 @@ def profile_requests(engine, images, torch, calls: int = 3) -> None:
         for e in prof.events()
         if e.device_type == DeviceType.CUDA
     )
-    if not spans:
-        print(f"profile of {calls} requests of {n} images: device time not measured "
-              "(the trace holds no device activity)")
-        return
+    if not any("fv_partial_kernel" in name for _, _, name in spans):
+        print(f"profile of {calls} {label} requests of {n} images: device time not measured "
+              "(the trace holds none of the Fisher-vector kernels every request runs)")
+        return float("nan")
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     by_name: dict = {}
     for start, end, name in spans:
@@ -361,11 +387,58 @@ def profile_requests(engine, images, torch, calls: int = 3) -> None:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    idle = 1 - busy / wall_us
     print(
-        f"profile of {calls} requests of {n} images: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; costliest on the device: "
+        f"profile of {calls} {label} requests of {n} images: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms, idle share {idle:.3f}; costliest on the device: "
         + "; ".join(f"{name[:70]} {us / 1e3 / calls:.4f} ms/request" for name, us in top)
     )
+    return idle
+
+
+def replay_kernels(pipe, images, torch) -> dict:
+    """Kernel launches by name in a ``torch.profiler`` trace of one replay
+    of a graphed bucket of ``pipe`` at ``len(images)`` rows: the
+    Fisher-vector kernel's partial and reduce kernels must each appear
+    twice (once per branch). The bucket is captured inside the same
+    trace, since CUPTI traces a graph's kernels one by one only when it
+    was attached as the graph was instantiated; the replay is the one
+    inside the ``one replay`` range (the warm-up's kernels end before it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from keystone_tpu_torch.workflow.serving import CompiledPipeline
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine = CompiledPipeline(pipe, buckets=[len(images)], devices=["cuda"])
+        engine.warmup(tuple(images.shape[1:]))
+        torch.cuda.synchronize()
+        with record_function("one replay"):
+            engine(images)
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == "one replay" and e.device_type == DeviceType.CPU)
+    counts: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and span.start <= e.time_range.start <= span.end:
+            for name in ("fv_partial_kernel", "fv_reduce_kernel"):
+                if name in e.name:
+                    counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def eager_call(pipe, X, ladder, torch):
+    """The serving chain called eagerly, as the engine did before graphs:
+    pad to the bucket with the last row, copy to the card from pageable
+    memory, run every operator from Python, slice, copy back."""
+    import numpy as np
+
+    n = len(X)
+    b = next(b for b in ladder if b >= n)
+    if n < b:
+        X = np.concatenate([X, np.repeat(X[-1:], b - n, axis=0)])
+    with torch.inference_mode():
+        return pipe(torch.from_numpy(X).cuda())[:n].cpu().numpy()
 
 
 def serve(torch) -> dict:
@@ -389,14 +462,31 @@ def serve(torch) -> dict:
     t0 = time.perf_counter()
     raw = seeded_params(seed=0, gmm_k=256, pca_dims=64, num_classes=classes, device="cuda", conf=conf)
     params = params_from_numpy(raw, "cuda")
-    pipe = build_serving_pipeline(params, conf)
+    pipe = build_serving_pipeline(params, conf).eval()
     if params.head.W.shape != (conf.feature_dim, classes) or conf.feature_dim != 65536:
         raise AssertionError(f"head {tuple(params.head.W.shape)}, want (65536, {classes})")
-    engine = CompiledPipeline(pipe, max_batch=64, device="cuda")
+    engine = CompiledPipeline(pipe, max_batch=64, devices=["cuda"])
     print(f"params and pipeline: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    before_warmup = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     engine.warmup((256, 256, 3))
-    print(f"warmup of buckets {list(engine.ladder)}: {time.perf_counter() - t0:.3f} s")
+    stats = engine.stats()
+    (builds,) = stats["build_seconds"].values()
+    (pools,) = stats["graph_pool_bytes"].values()
+    plan = stats["plan"]
+    print(f"warmup of buckets {list(engine.ladder)}: {time.perf_counter() - t0:.3f} s; plan: "
+          f"{plan['bytes_per_row'] / 2**20:.3f} MiB a row ({plan['provenance']}), budget "
+          f"{plan['budget_bytes'] / 2**30:.3f} GiB, planned {plan['planned_bytes'] / 2**30:.3f} GiB, "
+          f"trimmed {plan['trimmed']}")
+    print("capture seconds per bucket (eager warm-up, capture, first replay): "
+          + ", ".join(f"{b}: {s:.3f}" for b, s in builds.items()))
+    print("graph pool per bucket (MiB): " + ", ".join(f"{b}: {v / 2**20:.1f}" for b, v in pools.items())
+          + f"; device memory with every bucket's graph resident: allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB ({(torch.cuda.memory_allocated() - before_warmup) / 2**30:.3f} "
+          f"above the parameters), reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    if engine.ladder != (1, 2, 4, 8, 16, 32, 64) or engine.compile_count != 7:
+        raise AssertionError(f"the planner kept {engine.ladder}; {engine.compile_count} captures")
 
     _, test = ImageNetLoader.synthetic(n=4, num_classes=16, size=256, seed=1)
     images = test.data
@@ -421,32 +511,64 @@ def serve(torch) -> dict:
             if grew != 2:
                 raise AssertionError(f"fv kernel launched {grew} times for one bucketed call, want 2")
         outs[n] = (X, topk)
-        print(
-            f"request of {n} images: median {statistics.median(wall[n]):.3f} ms, "
-            f"min {min(wall[n]):.3f} ms over {REPEATS}, fv launches 2 per call"
-        )
     launches = fvo.LAUNCHES  # the main path's run ends here
-    print(f"fv launches on the main path: {launches}; calls by bucket {dict(engine.calls_by_bucket)}")
+    print(f"fv launches on the main path (graph replays, 2 each): {launches}; calls by bucket "
+          f"{dict(engine.calls_by_bucket)}")
     print(f"peak device memory while serving: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    counts = replay_kernels(pipe, outs[1][0], torch)
+    print(f"torch.profiler on one replay of bucket 1: {counts}")
+    if counts != {"fv_partial_kernel": 2, "fv_reduce_kernel": 2}:
+        raise AssertionError(f"one replay ran the fv kernels {counts}, want each twice")
+
+    # Graphs against the eager chain: walls on the same requests, in turns.
+    eager_wall = {n: [] for n in REQUESTS}
+    for n in REQUESTS:
+        X = outs[n][0]
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            eager_call(pipe, X, engine.ladder, torch)
+            eager_wall[n].append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            engine(X)
+            wall[n].append(1e3 * (time.perf_counter() - t0))
+        print(f"request of {n} images: graphs median {statistics.median(wall[n]):.3f} ms (min "
+              f"{min(wall[n]):.3f}, {len(wall[n])} calls), eager median {statistics.median(eager_wall[n]):.3f} ms "
+              f"(min {min(eager_wall[n]):.3f}, {REPEATS} calls)")
 
     # Where the time goes: device time of each stage at the bucket of the
     # smallest and the largest request, beside the request's wall time.
+    idle = {}
     for n in (REQUESTS[0], REQUESTS[-1]):
-        rows = stage_ms(pipe, outs[n][0], torch)
+        X = outs[n][0]
+        rows = stage_ms(pipe, X, torch)
         device = sum(ms for _, ms in rows)
-        median = statistics.median(wall[n])
         print(
-            f"stages of a {n}-image request (device ms): "
+            f"stages of a {n}-image request, eager (device ms): "
             + ", ".join(f"{name} {ms:.4f}" for name, ms in rows)
-            + f"; sum {device:.4f} of median wall {median:.4f} ms "
-            f"(device idle share about {1 - device / median:.3f})"
+            + f"; sum {device:.4f} of eager median wall {statistics.median(eager_wall[n]):.4f} ms"
         )
-        profile_requests(engine, outs[n][0], torch)
+        idle[n] = (profile_requests(lambda: engine(X), n, "graphed", torch),
+                   profile_requests(lambda: eager_call(pipe, X, engine.ladder, torch), n, "eager", torch))
+
+    # Every bucket: graphed top-5 and scores bit-equal to the eager chain's
+    # on the same padded batch.
+    scorer = Pipeline(list(pipe.stages)[:-1]).eval()
+    score_engine = CompiledPipeline(scorer, max_batch=64, devices=["cuda"]).warmup((256, 256, 3))
+    for b in engine.ladder:
+        X = images[:b]
+        same_top = np.array_equal(engine(X), eager_call(pipe, X, engine.ladder, torch))
+        same_scores = np.array_equal(score_engine(X), eager_call(scorer, X, engine.ladder, torch))
+        print(f"bucket {b}: graphed top-5 {'equal' if same_top else 'DIFFER'}, scores "
+              f"{'bit-equal' if same_scores else 'DIFFER'} to the eager chain's")
+        if not (same_top and same_scores):
+            raise AssertionError(f"bucket {b}'s graph disagrees with the eager chain")
+
+    service_launches = run_service(torch, score_engine, images[:64])
+    del score_engine
 
     # Scores of one request: kernel on the card vs the plain version on the
     # card, and vs the port on the CPU for its first image.
     X3 = torch.from_numpy(outs[3][0]).cuda()
-    scorer = Pipeline(list(pipe.stages)[:-1]).eval()
     with torch.inference_mode():
         s_kernel = scorer(X3)
         if not torch.isfinite(s_kernel).all() or s_kernel.shape != (3, classes):
@@ -464,7 +586,80 @@ def serve(torch) -> dict:
     )
     if err_plain > SCORE_RTOL * scale or err_cpu > SCORE_RTOL * scale:
         raise AssertionError("pipeline scores disagree beyond tolerance")
-    return {"launches": launches}
+    return {"launches": launches, "service_launches": service_launches,
+            "idle": idle, "walls": wall, "eager_walls": eager_wall}
+
+
+def run_service(torch, engine, images) -> int:
+    """Two runs of a ``PipelineService`` over the graphed scorer, each of
+    ``SERVICE_CLIENTS`` threads sending every image of ``images`` as a
+    one-image request: a burst (each client submits all of its requests,
+    then waits for the answers) and a closed loop (each client waits for
+    an answer before its next request). Every answer is held against the
+    engine's direct call on the same rows. Returns the Fisher-vector
+    launches of both runs."""
+    import threading
+
+    import numpy as np
+
+    import keystone_tpu_torch.ops.fisher_vector as fvo
+    from keystone_tpu_torch.workflow.serving import PipelineService
+
+    direct = engine(images)
+    scale = float(np.abs(direct).max())
+    order = np.argsort(-direct, axis=1)
+    top5 = np.sort(order[:, :5], axis=1)
+    gap = np.take_along_axis(direct, order[:, 4:5], 1)[:, 0] - np.take_along_axis(direct, order[:, 5:6], 1)[:, 0]
+    launches = 0
+    for mode in ("burst", "closed loop"):
+        answers = [[] for _ in range(SERVICE_CLIENTS)]
+        futures = []
+        lock = threading.Lock()
+        svc = PipelineService(engine, max_delay_ms=2.0)
+
+        def client(c):
+            mine = []
+            for i in np.random.default_rng(c).permutation(len(images)):
+                f = svc.submit(images[i])
+                with lock:
+                    futures.append(f)
+                mine.append((int(i), f))
+                if mode == "closed loop":
+                    f.result(120)
+            answers[c] = [(i, f.result(120)) for i, f in mine]
+
+        fvo.LAUNCHES = 0  # this service run starts here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVICE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        wall = time.perf_counter() - t0
+        stats = svc.stats()
+        svc.close()
+        launches += fvo.LAUNCHES  # and ends here
+        answers = [a for per in answers for a in per]
+        stranded = sum(not f.done() for f in futures)
+        n = len(answers)
+        worst = max(float(np.abs(a - direct[i]).max()) for i, a in answers)
+        checked = [(i, a) for i, a in answers if gap[i] > SERVICE_GAP_RTOL * scale]
+        top_ok = all(np.array_equal(np.sort(np.argsort(-a)[:5]), top5[i]) for i, a in checked)
+        lat = stats["latency"]
+        print(f"service, {mode}: {SERVICE_CLIENTS} clients x {len(images)} one-image requests = {n} in "
+              f"{wall:.3f} s, {n / wall:.1f} requests/s; latency p50 {lat['p50_ms']:.3f} ms, p99 "
+              f"{lat['p99_ms']:.3f} ms, max {lat['max_ms']:.3f} ms; {stats['batches_run']} batches, mean "
+              f"{stats['rows_served'] / stats['batches_run']:.2f} rows a batch; stranded futures {stranded}; "
+              f"outcomes {stats['outcomes']}; fv launches {fvo.LAUNCHES}")
+        print(f"service, {mode}: answers against the direct engine: max abs difference {worst:.3e} "
+              f"(max|score| {scale:.4e}, tol {SCORE_RTOL} x); top-5 equal on {len(checked)} of {n} answers "
+              f"whose 5th and 6th scores are over {SERVICE_GAP_RTOL} x max|score| apart: {top_ok}")
+        if (stranded or len(futures) != n or n != SERVICE_CLIENTS * len(images)
+                or stats["outcomes"] != {"ok": n} or worst > SCORE_RTOL * scale or not top_ok
+                or not checked or fvo.LAUNCHES != 2 * stats["batches_run"]
+                or any(t.is_alive() for t in threads)):
+            raise AssertionError(f"the service's {mode} run failed its checks")
+    return launches
 
 
 def fit_reduced(torch) -> None:
@@ -641,7 +836,7 @@ def fit_full(torch, train, test) -> dict:
 
     # Serve what was fitted, carried through convert.py as --params would.
     served = build_serving_pipeline(params_from_numpy(params_to_numpy(scored), "cuda"), conf)
-    engine = CompiledPipeline(served, max_batch=64, device="cuda")
+    engine = CompiledPipeline(served, max_batch=64, devices=["cuda"])
     engine.warmup((256, 256, 3))
     direct = scored.and_then(TopKClassifier(conf.top_k)).eval()
     fvo.LAUNCHES = 0  # serving the fitted pipeline starts here
@@ -661,6 +856,58 @@ def fit_full(torch, train, test) -> dict:
             raise AssertionError("the served fitted pipeline disagrees with its direct call")
     return {"launches": launches, "served_launches": served_launches, "scored": scored, "conf": conf,
             "objectives": objs, "test_errors": test_err, "fit_seconds": fit_s}
+
+
+def serve_precisions(torch, fitted, test) -> None:
+    """The precision ladder on the full-width fitted pipeline: an engine
+    (images to scores, buckets 1-64) at ``f32``, ``f32h`` and ``bf16``;
+    every bucket's graph held bit for bit against the same precision's
+    eager chain (``serve_fn``) on the same padded batch; walls of requests
+    of 1 and 64 images beside ``f32``'s; and ``qualify``'s report on the
+    512 test images against their labels, which must pass, and, without
+    them, as agreement with the f32 oracle's top-1, printed as it comes
+    (it refuses f32h and bf16: see PERF.md)."""
+    import numpy as np
+
+    from keystone_tpu_torch.workflow.serving import CompiledPipeline, PrecisionQualityError
+
+    scored = fitted["scored"]
+    for precision in ("f32", "f32h", "bf16"):
+        t0 = time.perf_counter()
+        engine = CompiledPipeline(scored, max_batch=64, devices=["cuda"], precision=precision)
+        engine.warmup((256, 256, 3))
+        build = time.perf_counter() - t0
+        walls = {}
+        for n in (1, 64):
+            X = test.data[:n]
+            engine(X)
+            ms = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                out = engine(X)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            walls[n] = statistics.median(ms)
+            if out.shape != (n, 1000) or out.dtype != np.float32 or not np.isfinite(out).all():
+                raise AssertionError(f"{precision}: scores {out.shape} {out.dtype}")
+        differ = [b for b in engine.ladder
+                  if not np.array_equal(engine(test.data[:b]),
+                                        eager_call(engine.serve_fn, test.data[:b], engine.ladder, torch))]
+        print(f"{precision}: graphed scores of buckets {list(engine.ladder)} against the {precision} "
+              f"eager chain on the same padded batch: {'bit-equal' if not differ else f'DIFFER at {differ}'}")
+        if differ:
+            raise AssertionError(f"{precision}: the graphs of buckets {differ} disagree with their eager chain")
+        # Against the labels the gate must pass; the agreement-only report
+        # is the gate's verdict, printed as it is.
+        reports = [engine.qualify(test.data, y=test.labels, metric="multiclass")]
+        try:
+            reports.append(engine.qualify(test.data, metric="multiclass"))
+        except PrecisionQualityError as refused:
+            reports.append(f"refused: {refused}")
+        print(f"{precision}: built in {build:.3f} s; median wall 1 image {walls[1]:.3f} ms, 64 images "
+              f"{walls[64]:.3f} ms; qualify on {len(test.data)} test images, with labels: {reports[0]}; "
+              f"against the oracle's top-1: {reports[1]}")
+        del engine
+        torch.cuda.empty_cache()
 
 
 # The streamed solve against the eager one on the same features: the same
@@ -756,6 +1003,7 @@ def fit_streamed(torch, train, test, eager) -> dict:
     from keystone_tpu_torch.loaders.stream import BatchIterator
     from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
     from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
+    from keystone_tpu_torch.utils.metrics import metrics_registry
     from keystone_tpu_torch.utils.stages import StageTimer
     from keystone_tpu_torch.workflow import Pipeline
 
@@ -873,13 +1121,41 @@ def fit_streamed(torch, train, test, eager) -> dict:
     test_batches = BatchIterator.from_arrays(test.data, test.labels, sconf.stream_batch)
     out = {"fit streamed": fit_launches}
     errs = {}
+    head_calls = metrics_registry.counters("serve.dispatch[imagenet-score-head]")
+    engines = []
+    scoring_engine = pipe._scoring_engine
+
+    def recording_engine(*args, **kw):  # the engine score_streamed builds, for its capture time
+        engines.append(scoring_engine(*args, **kw))
+        return engines[-1]
+
     for name, c in (("score streamed", sconf), ("score streamed tta", replace(sconf, augment=True))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        dispatched = sum(head_calls.snapshot().values())
         fvo.LAUNCHES = 0  # this scoring path's run starts here
-        scores, labels = pipe.score_streamed(streamed_fit, c, test_batches, train.data.shape[1], device="cuda")
+        with patch.object(pipe, "_scoring_engine", recording_engine):
+            scores, labels = pipe.score_streamed(streamed_fit, c, test_batches, train.data.shape[1],
+                                                 device="cuda")
         out[name] = fvo.LAUNCHES  # and ends here
         seconds = time.perf_counter() - t0
+        dispatched = sum(head_calls.snapshot().values()) - dispatched
+        if not c.augment:
+            print(f"{name}: the head through _scoring_engine (one graph at bucket {sconf.stream_batch}): "
+                  f"{dispatched} calls for {len(list(test_batches))} batches; its warm-up and capture "
+                  f"{engines[-1].warmup_seconds:.3f} s of the pass")
+            if dispatched != len(list(test_batches)):
+                raise AssertionError("the streamed scorer's head did not run through its engine")
+            # The direct call on the same first batch: the same features,
+            # and the head's graph against the eager head.
+            first = sconf.stream_batch
+            with torch.inference_mode():
+                direct = streamed_fit(torch.from_numpy(test.data[:first]).cuda()).cpu().numpy()
+            head_err = float(np.abs(scores[:first] - direct).max())
+            print(f"{name}: first batch's {first} scores against the direct call on it, max abs "
+                  f"difference {head_err:.3e}, tol {VIEW_RTOL} x max|score| {np.abs(direct).max():.4e}")
+            if head_err > VIEW_RTOL * np.abs(direct).max():
+                raise AssertionError("the streamed scores disagree with the direct call")
         if c.augment:
             patcher, averager = pipe.build_tta(c, train.data.shape[1])
             sub = max(1, c.stream_batch // patcher.num_views)
@@ -1295,6 +1571,10 @@ def fit_real(torch, eager) -> int:
 
 
 def main() -> int:
+    # CUPTI stays attached between profiles, so that a graph captured after
+    # one is traced kernel by kernel in the next (torch's profiler does the
+    # same for the CUDA graphs it knows of).
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -1355,6 +1635,9 @@ def main() -> int:
           f"{train.data.shape[1:]} over 1000 classes, made in {time.perf_counter() - t0:.3f} s (host)")
     fitted = fit_full(torch, train, test)
 
+    phase("serve, precision ladder")
+    serve_precisions(torch, fitted, test)
+
     phase("fit, streamed")
     streamed = fit_streamed(torch, train, test, fitted)
 
@@ -1371,10 +1654,11 @@ def main() -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/fisher_vector.cu",
         "replaces": "keystone_tpu/ops/fisher_vector_pallas.py:108",
-        "launches": (served["launches"] + fitted["launches"] + fitted["served_launches"]
-                     + sum(streamed["launches"].values()) + real_launches),
+        "launches": (served["launches"] + served["service_launches"] + fitted["launches"]
+                     + fitted["served_launches"] + sum(streamed["launches"].values()) + real_launches),
         "launches_by_path": {
-            "serve": served["launches"],
+            "serve, graphs": served["launches"],
+            "service": served["service_launches"],
             "fit": fitted["launches"],
             "serve fitted": fitted["served_launches"],
             **streamed["launches"],

@@ -17,11 +17,22 @@ they are arguments of a solve; ``solver_precision`` and
 ``solver_storage_dtype`` resolve an argument left at None from the
 reference's environment variables, with its choices, and refuse a value
 outside them.
+
+The serving knobs are the reference's (``keystone_tpu/config.py:245-300``,
+``:333``, ``:400-415``), fields of ``config`` read from the same
+``KEYSTONE_SERVE_*`` variables with the same defaults when the module is
+imported: the bucket ladder, its top, the serving precision, the replica
+pool's width, the in-flight window, the pending-queue bound, the default
+deadline and the planner switch. ``resolved_serve_buckets`` reads
+``KEYSTONE_SERVE_BUCKETS`` live, so an exported ladder pins the engine's
+even when exported after import. The fault-injection knobs of
+``utils/reliability.py`` live here too (the reference's ``:360-389``).
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -29,7 +40,14 @@ import torch
 default_dtype = torch.float32
 
 SOLVER_PRECISIONS = ("highest", "high", "default")
+SERVE_PRECISIONS = ("f32", "f32h", "bf16")
 SOLVER_STORAGE_DTYPES = ("float32", "bfloat16")
+
+# The memory a solve may plan for (the reference's config.hbm_budget_bytes):
+# it sizes the feature blocks, decides whether their inverses are cached and
+# whether an estimator streams its features from the host. The serving
+# planner budgets against it where the device reports no memory (the CPU).
+HBM_BUDGET_BYTES = 12 * (1 << 30)
 
 
 def _choice(name: str, value: Optional[str], choices: tuple, default: str) -> str:
@@ -61,6 +79,103 @@ def solver_storage_dtype(dtype: Optional[str] = None) -> str:
     bfloat16 operands into float32). None reads ``KEYSTONE_SOLVER_DTYPE``,
     ``float32`` when unset."""
     return _choice("KEYSTONE_SOLVER_DTYPE", dtype, SOLVER_STORAGE_DTYPES, "float32")
+
+
+def _env_int(name: str, default: int) -> int:
+    """An integer environment knob; a bad value raises naming the variable."""
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected an integer") from None
+
+
+def _env_float(name: str, default: float) -> float:
+    """A float environment knob; a bad value raises naming the variable."""
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected a number") from None
+
+
+def pow2_ladder(max_batch: int) -> tuple:
+    """Power-of-two bucket ladder up to (and always including) max_batch."""
+    if max_batch <= 0:
+        raise ValueError(f"max_batch must be positive, got {max_batch}")
+    ladder = []
+    b = 1
+    while b < max_batch:
+        ladder.append(b)
+        b *= 2
+    ladder.append(max_batch)
+    return tuple(ladder)
+
+
+def _env_buckets() -> tuple:
+    """``KEYSTONE_SERVE_BUCKETS``: unset or empty gives (), ``pow2`` the
+    power-of-two ladder up to ``KEYSTONE_SERVE_MAX_BATCH``, else a
+    comma-separated list of positive bucket sizes (sorted, deduplicated)."""
+    raw = os.environ.get("KEYSTONE_SERVE_BUCKETS")
+    if raw is None or not raw.strip():
+        return ()
+    if raw.strip().lower() == "pow2":
+        return pow2_ladder(_env_int("KEYSTONE_SERVE_MAX_BATCH", 1024))
+    try:
+        vals = tuple(sorted({int(tok) for tok in raw.split(",") if tok.strip()}))
+    except ValueError:
+        raise ValueError(
+            f"KEYSTONE_SERVE_BUCKETS={raw!r}: expected 'pow2' or comma-separated integers"
+        ) from None
+    if not vals or vals[0] <= 0:
+        raise ValueError(f"KEYSTONE_SERVE_BUCKETS={raw!r}: buckets must be positive")
+    return vals
+
+
+def resolved_serve_buckets() -> Optional[tuple]:
+    """The live value of ``KEYSTONE_SERVE_BUCKETS`` when it is exported and
+    not empty, else None: an exported ladder pins the serving engine's."""
+    if "KEYSTONE_SERVE_BUCKETS" in os.environ:
+        return _env_buckets() or None
+    return None
+
+
+@dataclass
+class Config:
+    """The port's process-wide knobs, each read from its environment
+    variable when the module is imported; code may set a field."""
+
+    # The serving ladder; () lets the engine use pow2 up to serve_max_batch.
+    serve_buckets: tuple = field(default_factory=_env_buckets)
+    # Top of the default (power-of-two) serving ladder.
+    serve_max_batch: int = field(default_factory=lambda: _env_int("KEYSTONE_SERVE_MAX_BATCH", 1024))
+    # The precision every bucket is captured at: f32, f32h or bf16.
+    serve_precision: str = field(
+        default_factory=lambda: _choice("KEYSTONE_SERVE_PRECISION", None, SERVE_PRECISIONS, "f32")
+    )
+    # Replicas of the serving engine: 0 = every local CUDA device.
+    serve_devices: int = field(default_factory=lambda: _env_int("KEYSTONE_SERVE_DEVICES", 0))
+    # Launches a replica may have in flight before the dispatcher waits.
+    serve_inflight: int = field(default_factory=lambda: _env_int("KEYSTONE_SERVE_INFLIGHT", 2))
+    # Requests PipelineService holds pending before submit() fails fast.
+    serve_max_pending: int = field(default_factory=lambda: _env_int("KEYSTONE_SERVE_MAX_PENDING", 1024))
+    # Default per-request deadline in ms (0 = none).
+    serve_deadline_ms: float = field(default_factory=lambda: _env_float("KEYSTONE_SERVE_DEADLINE_MS", 0.0))
+    # Whether the engine sizes an unpinned ladder against device memory.
+    plan_resources: bool = field(
+        default_factory=lambda: os.environ.get("KEYSTONE_PLAN_RESOURCES", "").lower()
+        not in ("0", "false", "no")
+    )
+    # Fault injection ('site:value,...') and its seed (utils/reliability.py).
+    faults: str = field(default_factory=lambda: os.environ.get("KEYSTONE_FAULTS", ""))
+    faults_seed: int = field(default_factory=lambda: _env_int("KEYSTONE_FAULTS_SEED", 0))
+
+
+config = Config()
 
 
 def resolve_device(device=None) -> torch.device:

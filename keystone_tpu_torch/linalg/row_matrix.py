@@ -22,12 +22,8 @@ from typing import Optional
 
 import torch
 
-from keystone_tpu_torch.config import solver_storage_dtype
-
-# The memory a solve may plan for (the reference's config.hbm_budget_bytes):
-# it sizes the feature blocks, decides whether their inverses are cached and
-# whether an estimator streams its features from the host.
-HBM_BUDGET_BYTES = 12 * (1 << 30)
+# HBM_BUDGET_BYTES: the solvers read the memory budget from here.
+from keystone_tpu_torch.config import HBM_BUDGET_BYTES, solver_storage_dtype  # noqa: F401
 
 
 def storage_dtype(dtype: Optional[str] = None) -> torch.dtype:
@@ -36,7 +32,7 @@ def storage_dtype(dtype: Optional[str] = None) -> torch.dtype:
 
 
 @contextmanager
-def _tf32_matmuls():
+def tf32_matmuls():
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -66,7 +62,7 @@ def solver_matmul(x: torch.Tensor, y: torch.Tensor, precision: str = "highest") 
                 "torch.backends.cuda.matmul.allow_tf32 is on"
             )
         return x @ y
-    with _tf32_matmuls():
+    with tf32_matmuls():
         return x @ y
 
 

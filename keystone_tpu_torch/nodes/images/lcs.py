@@ -6,6 +6,13 @@ channel → 96-dim descriptors for RGB. The per-cell sums are box sums of x
 and x² (``avg_pool2d`` with ``divisor_override=1``, i.e. plain window sums,
 stride 1), gathered at the dense keypoint grid by index tensors — the same
 grid geometry as SIFT, so the two branches stay keypoint-aligned.
+
+On a bfloat16 batch (the serving engine's ``bf16`` precision) every step
+stays in bfloat16, as in the reference: its ``reduce_window`` adds the
+window's values one at a time in row-major order, each sum rounded to
+bfloat16 (and x² is rounded before it is summed), so the box sums here are
+the same sequence of bfloat16 adds of shifted slices rather than
+``avg_pool2d``'s float accumulation.
 """
 
 from __future__ import annotations
@@ -16,6 +23,18 @@ import torch.nn.functional as F
 from keystone_tpu_torch.workflow import Transformer
 
 _CELLS = 4  # 4x4 sub-cells, matching the SIFT spatial grid
+
+
+def _box_sums(x, bs: int):
+    """Sums over every bs × bs window, stride 1, of NCHW ``x``."""
+    if x.dtype != torch.bfloat16:
+        return F.avg_pool2d(x, bs, stride=1, divisor_override=1)
+    h, w = x.shape[2] - bs + 1, x.shape[3] - bs + 1
+    acc = torch.zeros_like(x[:, :, :h, :w])
+    for dy in range(bs):
+        for dx in range(bs):
+            acc = acc + x[:, :, dy : dy + h, dx : dx + w]
+    return acc
 
 
 class LCSExtractor(Transformer):
@@ -43,8 +62,8 @@ class LCSExtractor(Transformer):
         ny = (h - span) // self.step + 1
         nx = (w - span) // self.step + 1
         x = X.permute(0, 3, 1, 2)  # NCHW for the pooling
-        s1 = F.avg_pool2d(x, bs, stride=1, divisor_override=1)
-        s2 = F.avg_pool2d(x * x, bs, stride=1, divisor_override=1)
+        s1 = _box_sums(x, bs)
+        s2 = _box_sums(x * x, bs)
         area = bs * bs
         # Cell top-left corners for every keypoint and sub-cell.
         dev = X.device

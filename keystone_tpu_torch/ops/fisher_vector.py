@@ -10,13 +10,21 @@ Fisher vectors laid out ``[gmu | gvar]``, each k-major:
   version, which the CPU tests hold against the JAX package.
 
 ``LAUNCHES`` counts the kernel's launches (one per call on a CUDA tensor),
-so a run can show that its main path went through the kernel.
+so a run can show that its main path went through the kernel. Inside a
+CUDA graph being captured, a call records the kernel into the graph and
+launches nothing: it adds one to the capturing thread's
+``captured_launches()`` instead of to ``LAUNCHES``. The serving engine
+(``workflow/serving.py``) reads how many launches each captured graph
+holds, and each replay of that graph adds them to ``LAUNCHES`` through
+``count_replay``, so a replayed bucket counts its two launches (partial
+sums and reduce of each branch's call) as an eager call does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -25,6 +33,8 @@ from keystone_tpu_torch import build
 from keystone_tpu_torch.ops.fv_common import fv_constants
 
 LAUNCHES = 0
+_captured = threading.local()
+_count_lock = threading.Lock()
 
 # A split covers at least this many tiles, so that a block's constant load
 # (128 KB at d=64, k=256) and partial write are spread over enough rows; a
@@ -46,6 +56,18 @@ class FVOperands(NamedTuple):
     inv_t: torch.Tensor  # (d, k) 1/var, transposed
     m2_t: torch.Tensor  # (d, k) -2·mu/var, transposed
     bias: torch.Tensor  # (k,) log w + log-normaliser - 0.5·Σ mu²/var
+
+
+def captured_launches() -> int:
+    """Calls this thread has recorded into CUDA graphs under capture."""
+    return getattr(_captured, "n", 0)
+
+
+def count_replay(launches: int) -> None:
+    """Adds the launches of one replay of a captured graph to ``LAUNCHES``."""
+    global LAUNCHES
+    with _count_lock:
+        LAUNCHES += launches
 
 
 def fv_operands(weights, means, variances) -> FVOperands:
@@ -188,6 +210,10 @@ def _fisher_vectors_cuda(X: torch.Tensor, ops: FVOperands) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"fisher_vector kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured.n = captured_launches() + 1
+    else:
+        with _count_lock:
+            LAUNCHES += 1
     return out
 

@@ -18,6 +18,7 @@ convolutions run with cuDNN TF32 off (``no_cudnn_tf32``).
 
 from __future__ import annotations
 
+import functools
 from contextlib import contextmanager
 
 import numpy as np
@@ -73,6 +74,17 @@ def _native_permutation() -> np.ndarray:
     return perm
 
 
+# The filters and the channel permutation go to the device once: a
+# host-to-card copy cannot be captured into a CUDA graph.
+@functools.lru_cache(maxsize=None)
+def _device_constants(bin_size: int, device: torch.device):
+    k1d = torch.from_numpy(_cell_kernels(bin_size)).to(device)
+    span = SPATIAL_BINS * bin_size
+    fy = k1d.repeat(ORI_BINS, 1).reshape(ORI_BINS * SPATIAL_BINS, 1, span, 1)
+    fx = k1d.repeat(ORI_BINS * SPATIAL_BINS, 1).reshape(DESC_DIM, 1, 1, span)
+    return fy, fx, torch.from_numpy(_native_permutation()).to(device)
+
+
 def _gradients(im: torch.Tensor):
     """Edge-clamped central differences: at the borders the clamped index
     makes the difference one-sided (still ×0.5)."""
@@ -106,17 +118,14 @@ def dense_sift(images: torch.Tensor, step: int = 4, bin_size: int = 4) -> torch.
             f"image ({h}x{w}) smaller than the {span}px descriptor support"
         )
     ori = _orientation_channels(*_gradients(images))  # (n, 8, h, w)
-    k1d = torch.from_numpy(_cell_kernels(bin_size)).to(images.device)
     # y-pass: each orientation channel b gives 4 cell-y responses, output
     # channels ordered (b, cy). x-pass: each (b, cy) gives 4 cell-x
     # responses, channels ordered (b, cy, cx).
-    fy = k1d.repeat(ORI_BINS, 1).reshape(ORI_BINS * SPATIAL_BINS, 1, span, 1)
-    fx = k1d.repeat(ORI_BINS * SPATIAL_BINS, 1).reshape(DESC_DIM, 1, 1, span)
+    fy, fx, perm = _device_constants(bin_size, images.device)
     with no_cudnn_tf32():
         out = F.conv2d(ori, fy, stride=(step, 1), groups=ORI_BINS)
         out = F.conv2d(out, fx, stride=(1, step), groups=ORI_BINS * SPATIAL_BINS)
     ny, nx = out.shape[2], out.shape[3]
-    perm = torch.from_numpy(_native_permutation()).to(images.device)
     desc = out.permute(0, 2, 3, 1).reshape(n, ny * nx, DESC_DIM)[..., perm]
 
     # L2 → 0.2 clamp → re-L2, with the native kernel's norm guard: a

@@ -25,7 +25,8 @@ class-balanced sample), the training set is featurized in batches of
 ``stream_batch`` through ``apply_batches`` (on real data decoded by
 ``ImageNetLoader.stream_batches`` on its own thread), only its features
 are kept, on the host, and the head is solved streamed from there;
-``score_streamed`` scores the test set batch by batch. With ``augment``
+``score_streamed`` scores the test set batch by batch, the head served by
+``_scoring_engine`` (one bucket at ``stream_batch``). With ``augment``
 each test image is scored as the average over its ten center and corner
 views (``CenterCornerPatcher``, crop 7/8 of the side unless
 ``augment_crop``), on either path. Full width, as ``resolve_scale`` sets
@@ -358,22 +359,40 @@ def fit_streamed(conf: ImageNetSiftLcsFVConfig, fit_sample, train_batches, num_c
     return featurizer.and_then(solver.fit(A, targets))
 
 
+def _scoring_engine(model, stream_batch: int, device) -> CompiledPipeline:
+    """The classifier head as a serving engine on ``device`` for the
+    streamed scorer (the reference's ``:46-66``): one bucket at
+    ``stream_batch``, since the stream gives full batches and one trailing
+    partial batch, padded up. Its stable name keeps repeated scoring passes
+    on the same registry entries."""
+    return CompiledPipeline(model, buckets=(stream_batch,), devices=[device],
+                            name="imagenet-score-head")
+
+
 def score_streamed(scored: Pipeline, conf: ImageNetSiftLcsFVConfig, test_batches, side: int,
                    device=None):
     """(scores, labels) of the ``(images, labels)`` batches of
-    ``test_batches`` as host arrays: each batch through ``apply_batches``
-    plainly or, with ``conf.augment``, as the averages of its images' views
-    (side × side images), scored ``max(1, stream_batch // views)`` images at
-    a time."""
+    ``test_batches`` as host arrays. Plainly, the featurizer (every stage of
+    ``scored`` but its last) runs through ``apply_batches`` and the head
+    through ``_scoring_engine``; with ``conf.augment`` each batch's scores
+    are the averages of its images' views (side × side images), scored
+    ``max(1, stream_batch // views)`` images at a time."""
     device = resolve_device(device)
-    if conf.augment:
-        patcher, averager = build_tta(conf, side)
-        scored = ViewAveragedScores(
-            scored, patcher, averager, max(1, conf.stream_batch // patcher.num_views)
-        )
+    if not conf.augment:
+        featurizer, head = Pipeline(list(scored.stages)[:-1]), scored.stages[-1]
+        engine = _scoring_engine(head, conf.stream_batch, device)
+        scores, labels = [], []
+        with torch.inference_mode():
+            feats = featurizer.apply_batches(test_batches, device=device)
+            for s, y in head.apply_batches(feats, prefetch_depth=0, engine=engine):
+                scores.append(s)
+                labels.append(np.asarray(y))
+        return np.concatenate(scores), np.concatenate(labels)
+    patcher, averager = build_tta(conf, side)
+    viewed = ViewAveragedScores(scored, patcher, averager, max(1, conf.stream_batch // patcher.num_views))
     scores, labels = [], []
     with torch.inference_mode():
-        for s, y in scored.apply_batches(test_batches, device=device):
+        for s, y in viewed.apply_batches(test_batches, device=device):
             scores.append(s.cpu().numpy())
             labels.append(np.asarray(y))
     return np.concatenate(scores), np.concatenate(labels)
@@ -530,7 +549,8 @@ def main(argv=None):
     else:
         raw = seeded_params(a.seed, gmm_k, a.pca_dims, a.num_classes, device, conf)
     params = params_from_numpy(raw, device)
-    engine = CompiledPipeline(build_serving_pipeline(params, conf), a.max_batch, device)
+    engine = CompiledPipeline(build_serving_pipeline(params, conf), max_batch=a.max_batch,
+                              devices=[device])
     engine.warmup((a.image_size, a.image_size, 3))
     sizes = [int(s) for s in a.requests.split(",") if s]
     _, test = ImageNetLoader.synthetic(n=4, size=a.image_size, seed=a.seed)

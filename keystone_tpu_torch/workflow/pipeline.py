@@ -10,8 +10,9 @@ axis. ``and_then(estimator, data[, labels])`` fits eagerly: it applies the
 pipeline to ``data`` in batches, fits the estimator on the result and
 appends what it fitted. ``apply_batches`` streams row batches through a
 stage, reading them on a prefetch thread and staging them through pinned
-memory (``workflow/pipeline.py::Pipeline.apply_batches``, ``:551-601``,
-without its replica-pool ``engine``).
+memory (``workflow/pipeline.py::Pipeline.apply_batches``, ``:551-601``), or
+with ``engine=`` through a serving engine's replica pool.
+``Pipeline.compiled`` gives that engine (``:869-896``).
 """
 
 from __future__ import annotations
@@ -77,13 +78,21 @@ class Transformer(nn.Module):
             out[i : i + len(y)] = y
         return out
 
-    def apply_batches(self, batches, prefetch_depth: int = PREFETCH_DEPTH, device=None):
+    def apply_batches(self, batches, prefetch_depth: int = PREFETCH_DEPTH, device=None, engine=None):
         """Yields ``(self(X), y)`` on ``device`` for each ``(X, y)`` (or bare
         host ``X``, with ``y`` None) of ``batches``, in source order. The
         source runs on a prefetch thread ``prefetch_depth`` batches ahead
         (0: on the caller's) and copies each batch into a pinned buffer; the
         copy of batch b+1 to the card then runs while the stage computes on
-        batch b."""
+        batch b.
+
+        ``engine`` takes a ``workflow.serving.CompiledPipeline`` serving this
+        stage (``Pipeline.compiled()``): the stream goes to its
+        ``apply_batches``, which keeps up to in-flight × replicas batches
+        going across its pool and yields host (numpy) outputs."""
+        if engine is not None:
+            yield from engine.apply_batches(batches, prefetch_depth)
+            return
         device = resolve_device(device)
         stager = HostStager(device, buffers=prefetch_depth + 2)
 
@@ -146,6 +155,16 @@ class Pipeline(Transformer):
         elif data is not None or labels is not None:
             raise TypeError("fit data only goes with an estimator")
         return Pipeline([*self.stages, nxt])
+
+    def compiled(self, buckets=None, max_batch=None, devices=None, inflight=None):
+        """This pipeline as a shape-stable serving engine,
+        ``workflow.serving.CompiledPipeline``; call its ``warmup()`` with
+        the traffic's feature shape to build every bucket on every replica
+        (``devices``; every local CUDA device by default) before traffic."""
+        from keystone_tpu_torch.workflow.serving import CompiledPipeline
+
+        return CompiledPipeline(self, buckets=buckets, max_batch=max_batch, devices=devices,
+                                inflight=inflight)
 
     @staticmethod
     def gather(branches: Sequence[nn.Module]) -> "Pipeline":

@@ -28,6 +28,13 @@ after it; ``highest`` refuses TF32 turned on from outside. Features on the
 card over half the memory budget (patched small) are streamed from the
 host, and the head matches the CPU's streamed fit at rtol 1e-4.
 
+The serving engine captures one CUDA graph per bucket: a graphed bucket
+gives the eager chain's bits on the same padded input (the same operators
+on the same stream order), and each replay counts the two Fisher-vector
+launches (one per branch) that its graph holds, which capture itself does
+not count. A batch already on the card, and a batch given as request
+blocks, give the host batch's bits.
+
 A small fit of the whole pipeline on the card is held against the same fit
 on the CPU: both draw the same random numbers, and differ only in rounding.
 PCA components up to sign at atol 1e-3 (rounding rotates components whose
@@ -43,7 +50,7 @@ import pytest
 import torch
 
 import keystone_tpu_torch.ops.fisher_vector as fvo
-from keystone_tpu_torch.convert import params_to_numpy
+from keystone_tpu_torch.convert import params_from_numpy, params_to_numpy
 from keystone_tpu_torch.linalg.bcd import block_coordinate_descent_streamed
 from keystone_tpu_torch.loaders.stream import BatchIterator
 from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
@@ -53,6 +60,7 @@ from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
 from keystone_tpu_torch.utils.staging import HostStager
 from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -273,3 +281,47 @@ def test_the_auto_rule_streams_features_on_the_card(cuda, monkeypatch):
     want = BlockWeightedLeastSquaresEstimator(block_size=16, num_iters=2, lam=0.1, device="cpu",
                                               stream=True).fit(X, Y)
     torch.testing.assert_close(got.W.cpu(), want.W, rtol=1e-4, atol=1e-4)
+
+
+def _small_scorer(cuda):
+    """The serving chain at gmm_k=4, pca_dims=8, 5 classes, to scores."""
+    conf = port.ImageNetSiftLcsFVConfig(gmm_k=4, pca_dims=8, top_k=3)
+    params = params_from_numpy(port.seeded_params(0, 4, 8, 5, cuda, conf), cuda)
+    return Pipeline(list(port.build_serving_pipeline(params, conf).stages)[:-1])
+
+
+def test_graphed_bucket_equals_the_eager_chain(cuda):
+    scorer = _small_scorer(cuda)
+    captured = fvo.LAUNCHES
+    engine = CompiledPipeline(scorer, buckets=[4], devices=[cuda]).warmup((32, 32, 3))
+    X = ImageNetLoader.synthetic(n=8, num_classes=3, size=32, seed=1)[0].data[:3]
+    got = engine(X)
+    with torch.inference_mode():
+        want = scorer(torch.from_numpy(np.concatenate([X, X[-1:]])).to(cuda))[:3].cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    stats = engine.stats()
+    assert stats["compile_count"] == 1
+    assert next(iter(stats["graph_pool_bytes"].values()))[4] > 0
+    # The eager warm-up, the warm-up's replay, the replay serving X and the
+    # eager call launch the kernel twice each; the capture launches nothing.
+    assert fvo.LAUNCHES - captured == 4 * 2
+
+
+def test_a_replay_counts_two_fisher_vector_launches(cuda):
+    engine = CompiledPipeline(_small_scorer(cuda), buckets=[1, 4], devices=[cuda]).warmup((32, 32, 3))
+    X = ImageNetLoader.synthetic(n=8, num_classes=3, size=32, seed=2)[0].data
+    for n in (1, 3, 8):  # 8: two chunks of 4, two replays
+        before = fvo.LAUNCHES
+        out = engine(X[:n])
+        assert out.shape == (n, 5) and np.isfinite(out).all()
+        assert fvo.LAUNCHES - before == 2 * -(-n // 4)
+
+
+def test_rows_on_the_card_and_in_blocks_equal_the_host_batch(cuda):
+    engine = CompiledPipeline(_small_scorer(cuda), buckets=[4], devices=[cuda]).warmup((32, 32, 3))
+    X = ImageNetLoader.synthetic(n=8, num_classes=3, size=32, seed=3)[0].data[:3]
+    want = engine(X)
+    # Device to device into the static input, after the caller's stream.
+    np.testing.assert_array_equal(engine(torch.from_numpy(X).to(cuda)), want)
+    # Request blocks written into the pinned slot at their offsets.
+    np.testing.assert_array_equal(engine._call_parts([X[:1], X[1:]]).wait(), want)

@@ -188,7 +188,7 @@ def test_fitted_pipeline_round_trips_and_serves():
     X = test.data[:5]
     with torch.inference_mode():
         want = scored(torch.from_numpy(X)).numpy()
-    engine = CompiledPipeline(scored, max_batch=4, device="cpu")
+    engine = CompiledPipeline(scored, max_batch=4, devices=["cpu"])
     np.testing.assert_allclose(engine(X), want, **SCORE_TOL)
 
 

@@ -127,7 +127,7 @@ def test_compiled_pipeline_matches_direct_call(n):
     params = params_from_numpy(_numpy_params(), device="cpu")
     pipe = port.build_serving_pipeline(params, CONF)
     scorer = Pipeline(list(pipe.stages)[:-1])
-    engine = CompiledPipeline(scorer, max_batch=4, device="cpu")
+    engine = CompiledPipeline(scorer, max_batch=4, devices=["cpu"])
     engine.warmup((SIZE, SIZE, 3))
     assert engine.ladder == (1, 2, 4)
     X = _images(n, seed=1)

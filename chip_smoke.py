@@ -81,9 +81,25 @@ script exits non-zero:
    ``load`` bit for bit, and ``run_streamed`` on the JPEGs end to end
    (65,536 features, 3 epochs, 1,000 classes, batches of 256, a balanced
    sample of 512);
-10. one JSON line with every kernel's launches (on every path: serving
+10. the other image pipelines at the reference's configs and their
+   datasets' real counts: VOCSIFTFisher (20 classes, 5,011 training and
+   4,952 test synthetic 128x128 images; SIFT at step 4 and bin 4,
+   ``pca_dims=64``, ``gmm_k=16``, 2,048 features) fitted and scored on the
+   card (stage seconds, Fisher-vector launches, mAP, peak memory; its test
+   scores against the same pipeline with the plain Fisher vector; the
+   kernel at its shape, B = 64 and 1, against the plain version and timed
+   against the k = 16 bound); MnistRandomFFT (4 FFTs, 4,104 features,
+   60,000 and 10,000 rows from IDX files) through ``run``, then both
+   solvers on its features (seconds, test error, peak memory), the normal
+   equations checked in float64 and the two solutions' distance;
+   RandomPatchCifar (256 filters of 6x6, 2,048 features; float32 and
+   bfloat16 features) and LinearPixels through ``run`` on 50,000 and
+   10,000 images from CIFAR binary files, the convolver against a float64
+   convolution; MNIST and CIFAR fitted again at a reduced count on the card
+   and on the CPU, features and test errors compared;
+11. one JSON line with every kernel's launches (on every path: serving
    through graphs, the service, fitting, serving what was fitted, the streamed fit, plain and TTA
-   streamed scoring, the streamed fit on real data), error and times: ``ms`` is the kernel's device time
+   streamed scoring, the streamed fit on real data, VOC's fit and scoring), error and times: ``ms`` is the kernel's device time
    per call at B=64 (``torch.profiler``), ``call_ms`` the same call between
    CUDA events, host included.
 
@@ -1570,6 +1586,353 @@ def fit_real(torch, eager) -> int:
     return launches
 
 
+# The other image pipelines, at the reference's published widths and their
+# datasets' real counts. VOC 2007: 5,011 training and 4,952 test images of
+# 20 classes, 128x128 (the loader's size for real images); the synthetic
+# loader gives n // 4 test images, so the test split is the training split
+# of the next seed (another generator stream). MNIST: 60,000 and 10,000
+# rows; CIFAR-10: 50,000 and 10,000 images; both written in their binary
+# formats (the synthetic images rounded to bytes) and read back by the
+# pipelines' own loaders through ``run``.
+VOC_COUNTS = (5011, 4952)
+VOC_CLASSES = 20
+VOC_SIZE = 128
+VOC_M, VOC_K = 841, 16  # descriptors of a 128x128 image at step 4, bin 4; GMM components
+MNIST_COUNTS = (60000, 10000)
+CIFAR_COUNTS = (50000, 10000)
+# Card against CPU, reduced: rows (MNIST) and images (CIFAR) of training
+# data; the loaders' n // 4 test split.
+REDUCED = {"mnist": 4096, "cifar": 2048}
+# Features on the card against the CPU, relative to the largest |feature|:
+# float32 FFTs of the same rows; for CIFAR, filters from two float32 ZCA
+# fits (eigh on two backends) through 108-term sums.
+MNIST_FEATURE_RTOL = 1e-4
+CIFAR_FEATURE_RTOL = 1e-3
+# The normal equations' residual |(A'A + lam I) W - A'Y| / |A'Y| in float64,
+# A as the solver centered it in float32: float32 sums over n rows (the
+# gram and A'Y) and the Cholesky solve leave it below
+# NE_C x sqrt(n + 3d) x u x ((| |A|'|A| | + lam sqrt(d)) |W| + | |A|'|Y| |) / |A'Y|,
+# Frobenius norms (the probabilistic rounding bound, sqrt of the sum length
+# in place of its length).
+NE_C = 4.0
+# The VOC head's test scores through the plain Fisher vector against the
+# kernel's, relative to the largest |score|: SCORE_RTOL.
+VOC_MAP_MIN = 0.5  # mean AP far above chance (about 0.08 for 20 classes)
+
+
+def write_idx(path: str, arr) -> None:
+    """``arr`` (uint8) as an IDX file, the format MNIST ships in."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack(">HBB", 0, 0x08, arr.ndim))
+        f.write(struct.pack(f">{arr.ndim}I", *arr.shape))
+        f.write(arr.tobytes())
+
+
+def as_bytes(np, X):
+    return np.clip(np.rint(X * 255.0), 0, 255).astype(np.uint8)
+
+
+def mnist_files(np, root: str, counts=MNIST_COUNTS) -> dict:
+    import os
+
+    from keystone_tpu_torch.loaders.mnist import MnistLoader
+
+    train, test = MnistLoader.synthetic(n=counts[0], seed=0)
+    paths = {}
+    for name, split, n in (("train", train, counts[0]), ("t10k", test, counts[1])):
+        path = os.path.join(root, name)
+        write_idx(path + "-images-idx3-ubyte", as_bytes(np, split.data[:n]).reshape(n, 28, 28))
+        write_idx(path + "-labels-idx1-ubyte", split.labels[:n].astype(np.uint8))
+        paths[name] = path
+    return paths
+
+
+def cifar_files(np, root: str, counts=CIFAR_COUNTS) -> dict:
+    import os
+
+    from keystone_tpu_torch.loaders.cifar import CifarLoader
+
+    train, test = CifarLoader.synthetic(n=counts[0], seed=0)
+    paths = {}
+    for name, split, n in (("train", train, counts[0]), ("test", test, counts[1])):
+        planes = as_bytes(np, split.data[:n]).transpose(0, 3, 1, 2).reshape(n, -1)
+        path = os.path.join(root, f"{name}.bin")
+        np.concatenate([split.labels[:n, None].astype(np.uint8), planes], axis=1).tofile(path)
+        paths[name] = path
+    return paths
+
+
+def peak_gib(torch, device) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if torch.device(device).type == "cuda" else float("nan")
+
+
+def reset_peak(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def stages_line(timer) -> str:
+    secs = timer.seconds()
+    return ", ".join(f"{k} {v:.4f}" for k, v in secs.items()) + f"; sum {sum(secs.values()):.4f}"
+
+
+def within(worst: dict, label: str) -> None:
+    """Prints ``worst`` ({name: (value, tolerance)}) and raises naming every
+    entry past its tolerance."""
+    print(f"{label}: " + "; ".join(f"{k} {v:.3e} (tol {t})" for k, (v, t) in worst.items()))
+    bad = [k for k, (v, t) in worst.items() if not v <= t]
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+
+
+def rel_to_max(torch, got, want) -> float:
+    got, want = (torch.as_tensor(a).double().cpu() for a in (got, want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def voc_pipeline(torch, fvo, device="cuda", counts=VOC_COUNTS) -> dict:
+    """VOCSIFTFisher at the reference's config on ``counts`` synthetic
+    images: fitted and scored through ``fit`` and ``scores`` (the main
+    path; Fisher-vector launches counted), its test scores held against the
+    same pipeline with the plain Fisher vector. Returns the launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from torch import nn
+
+    from keystone_tpu_torch.loaders.voc import VOCLoader
+    from keystone_tpu_torch.nodes.images.external.fisher_vector import FisherVector
+    from keystone_tpu_torch.pipelines.images import voc_sift_fisher as voc
+    from keystone_tpu_torch.utils.stages import StageTimer
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        train, test = pool.map(
+            lambda seed_n: VOCLoader.synthetic(n=seed_n[1], num_classes=VOC_CLASSES, size=VOC_SIZE,
+                                               seed=seed_n[0])[0],
+            ((0, counts[0]), (1, counts[1])))
+    print(f"voc data: {len(train.data)} training and {len(test.data)} test images of {train.data.shape[1:]}, "
+          f"{VOC_CLASSES} classes, {train.labels.sum(axis=1).mean():.3f} present a training image; made in "
+          f"{time.perf_counter() - t0:.3f} s (host)")
+    conf = voc.VOCSIFTFisherConfig(synthetic_classes=VOC_CLASSES)
+    reset_peak(torch, device)
+    t0 = time.perf_counter()
+    fvo.LAUNCHES = 0  # the VOC path's run starts here
+    with StageTimer(device) as timer:
+        scored = voc.fit(conf, train, device)
+        test_scores = voc.scores(scored, test.data, device)
+        timer.mark("scoring the test set")
+    launches = fvo.LAUNCHES  # and ends here
+    out = voc.evaluate(test_scores, test.labels, VOC_CLASSES, time.perf_counter() - t0)
+    want = sum(-(-n // 64) for n in counts)
+    print(f"voc_sift_fisher: {out['summary']} over {VOC_CLASSES} classes, per-class AP "
+          f"{min(out['per_class_ap']):.4f}..{max(out['per_class_ap']):.4f}; feature dim {conf.feature_dim} "
+          f"(pca_dims {conf.pca_dims}, gmm_k {conf.gmm_k}); {out['seconds']:.3f} s (host clock); "
+          f"peak device memory {peak_gib(torch, device):.3f} GiB")
+    print(f"voc_sift_fisher stages (s, CUDA events): {stages_line(timer)}")
+    print(f"fv launches of the VOC fit and scoring: {launches} (batches of 64: {want})")
+    if device != "cpu" and launches != want:
+        raise AssertionError(f"VOC launches {launches}, want {want}")
+    if test_scores.shape != (counts[1], VOC_CLASSES) or not np.isfinite(test_scores).all():
+        raise AssertionError("VOC test scores are not finite of the expected shape")
+    if not out["map"] >= VOC_MAP_MIN:
+        raise AssertionError(f"VOC mAP {out['map']} below {VOC_MAP_MIN}")
+    n = min(1024, counts[1])
+    with_plain_fv(scored, FisherVector, fvo, nn)
+    plain = voc.scores(scored, test.data[:n], device)
+    within({"test scores through the plain Fisher vector (rel. to max)":
+            (rel_to_max(torch, test_scores[:n], plain), SCORE_RTOL)}, f"voc, kernel against plain, {n} test images")
+    return {"launches": launches}
+
+
+def ne_residual(torch, A, Y, W, lam: float) -> dict:
+    """The normal equations of ``W`` checked in float64 on A's device: A and
+    Y centered in float32 as ``LinearMapEstimator`` centers them; the
+    residual against the bound NE_C states, and W's distance from a float64
+    solve."""
+    n, d = A.shape
+    A64 = (A - A.sum(dim=0) / n).double()
+    Y64 = (Y - Y.sum(dim=0) / n).double()
+    W64 = W.double()
+    G = A64.T @ A64
+    G.diagonal().add_(lam)
+    rhs = A64.T @ Y64
+    residual = float(torch.linalg.norm(G @ W64 - rhs) / torch.linalg.norm(rhs))
+    absA = A64.abs()
+    scale = ((torch.linalg.norm(absA.T @ absA) + lam * d**0.5) * torch.linalg.norm(W64)
+             + torch.linalg.norm(absA.T @ Y64.abs())) / torch.linalg.norm(rhs)
+    bound = NE_C * (n + 3 * d) ** 0.5 * F32_UNIT_ROUNDOFF * float(scale)
+    exact = torch.linalg.solve(G, rhs)
+    eig = torch.linalg.eigvalsh(G)
+    return {"residual": residual, "bound": bound, "cond": float(eig[-1] / eig[0]),
+            "dist": float(torch.linalg.norm(W64 - exact) / torch.linalg.norm(exact)), "exact": exact}
+
+
+def mnist_pipeline(torch, root: str, device="cuda", counts=MNIST_COUNTS, reduced=REDUCED["mnist"]) -> None:
+    """MnistRandomFFT at the reference's config: ``run`` on IDX files of
+    ``counts`` rows; then both solvers on its features (seconds, test
+    error, peak memory), the normal equations checked in float64 and the
+    two solutions' distance; then card against CPU at ``reduced`` rows."""
+    import numpy as np
+
+    from keystone_tpu_torch.loaders.mnist import MnistLoader
+    from keystone_tpu_torch.nodes.learning.linear_mapper import LinearMapEstimator
+    from keystone_tpu_torch.nodes.util.classifiers import MaxClassifier
+    from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines.images import mnist_random_fft as mnist
+    from keystone_tpu_torch.utils.stages import StageTimer
+
+    t0 = time.perf_counter()
+    paths = mnist_files(np, root, counts)
+    print(f"mnist data: {counts[0]} training and {counts[1]} test rows of 784 as IDX files, made in "
+          f"{time.perf_counter() - t0:.3f} s (host)")
+    conf = mnist.MnistRandomFFTConfig(train_path=paths["train"], test_path=paths["t10k"])
+    reset_peak(torch, device)
+    with StageTimer(device) as timer:
+        out = mnist.run(conf, device)
+    print(f"mnist_random_fft: test error {1 - out['test_accuracy']:.4f}, train error "
+          f"{1 - out['train_accuracy']:.4f}; load {out['load_seconds']:.3f} s, fit and predict "
+          f"{out['fit_predict_seconds']:.3f} s (host clock); peak device memory {peak_gib(torch, device):.3f} GiB")
+    print(f"mnist_random_fft stages (s, CUDA events): {stages_line(timer)}")
+
+    train, test = MnistLoader.load(paths["train"]), MnistLoader.load(paths["t10k"])
+    featurizer = mnist.build_featurizer(conf, 784, device=device)
+    with torch.inference_mode():
+        A = featurizer.apply_in_batches(train.data, batch_size=4096, device=device)
+        F_test = featurizer.apply_in_batches(test.data, batch_size=4096, device=device)
+        Y = ClassLabelIndicators(conf.num_classes)(torch.as_tensor(train.labels).to(device))
+        mappers = {}
+        for method in ("normal", "tsqr"):
+            reset_peak(torch, device)
+            with StageTimer(device) as timer:
+                mappers[method] = LinearMapEstimator(lam=conf.lam, method=method).fit(A, Y)
+            pred = MaxClassifier()(mappers[method](F_test)).cpu().numpy()
+            print(f"mnist {method}: A {tuple(A.shape)}; fit {sum(timer.seconds().values()):.4f} s (CUDA events), "
+                  f"test error {float((pred != test.labels).mean()):.4f}, peak device memory "
+                  f"{peak_gib(torch, device):.3f} GiB")
+        t0 = time.perf_counter()
+        check = ne_residual(torch, A, Y, mappers["normal"].W, conf.lam)
+        Wn, Wt = mappers["normal"].W.double(), mappers["tsqr"].W.double()
+        apart = float(torch.linalg.norm(Wn - Wt) / torch.linalg.norm(Wt))
+        tsqr_dist = float(torch.linalg.norm(Wt - check["exact"]) / torch.linalg.norm(check["exact"]))
+    print(f"mnist normal equations in float64 ({A.shape[0]} rows, {A.shape[1]} features, lam {conf.lam}): ridge "
+          f"gram condition number {check['cond']:.3e}; residual {check['residual']:.3e} (tol {check['bound']:.3e}); "
+          f"distance from a float64 solve: normal {check['dist']:.3e}, tsqr {tsqr_dist:.3e}; normal against tsqr "
+          f"{apart:.3e} ({time.perf_counter() - t0:.3f} s)")
+    kappa_tol = SOLVE_KAPPA_U * check["cond"] * F32_UNIT_ROUNDOFF
+    print(f"mnist normal equations: distance from a float64 solve {check['dist']:.3e} "
+          f"(tol {SOLVE_KAPPA_U} x kappa x u = {kappa_tol:.3e})")
+    if not (check["residual"] <= check["bound"] and check["dist"] <= kappa_tol):
+        raise AssertionError("the MNIST head does not solve its normal equations")
+
+    train, test = MnistLoader.synthetic(n=reduced, seed=1)
+    rconf = mnist.MnistRandomFFTConfig()
+    feats, errs = {}, {}
+    for dev in (device, "cpu"):
+        featurizer = mnist.build_featurizer(rconf, 784, device=dev)
+        pipe = mnist.build_pipeline(rconf, train.data, train.labels, dev, featurizer=featurizer)
+        with torch.inference_mode():
+            feats[dev] = featurizer(torch.from_numpy(test.data).to(dev)).cpu()
+        errs[dev] = float((mnist.predict(pipe, test.data, dev) != test.labels).mean())
+    within({"test features (rel. to max)": (rel_to_max(torch, feats[device], feats["cpu"]), MNIST_FEATURE_RTOL),
+            "test error (abs)": (abs(errs[device] - errs["cpu"]), FIT_ERROR_TOL)},
+           f"mnist, card against cpu, {reduced} training rows (errors {errs[device]:.4f} / {errs['cpu']:.4f})")
+
+
+def conv_against_float64(torch, device) -> None:
+    """The Convolver on 64 CIFAR-sized images at the reference's filter
+    shape, against a float64 convolution of the same operands (bfloat16-
+    rounded in that mode): each output within gamma_108 of the sum of its
+    products' magnitudes, which holds for float32 sums of exact products
+    and fails for TF32 products of float32 operands."""
+    import torch.nn.functional as F
+
+    from keystone_tpu_torch.nodes.images.convolver import Convolver
+
+    g = torch.Generator().manual_seed(3)
+    X = torch.rand(64, 32, 32, 3, generator=g)
+    filt = torch.randn(256, 6, 6, 3, generator=g)
+    terms = 6 * 6 * 3
+    gamma = terms * F32_UNIT_ROUNDOFF / (1 - terms * F32_UNIT_ROUNDOFF)
+    worst = {}
+    for dtype in (None, "bfloat16"):
+        conv = Convolver(filt, compute_dtype=dtype, device=device)
+        with torch.inference_mode():
+            got = conv(X.to(device)).double().cpu()
+        x, w = X, filt
+        if dtype:
+            x, w = (t.to(torch.bfloat16).double() for t in (X, filt))
+        x, w = x.double().permute(0, 3, 1, 2), w.double().permute(0, 3, 1, 2)
+        exact = F.conv2d(x, w).permute(0, 2, 3, 1)
+        mags = F.conv2d(x.abs(), w.abs()).permute(0, 2, 3, 1)
+        worst[f"{dtype or 'float32'}: max |error| / sum |products|"] = (float(((got - exact).abs() / mags).max()), gamma)
+    within(worst, "convolver against a float64 convolution, 64 images x 256 filters 6x6x3")
+
+
+def cifar_pipelines(torch, root: str, device="cuda", counts=CIFAR_COUNTS, reduced=REDUCED["cifar"]) -> None:
+    """RandomPatchCifar (float32 and bfloat16 features) and LinearPixels at
+    the reference's configs through ``run`` on CIFAR binary files of
+    ``counts`` images; the convolver against float64; then RandomPatchCifar
+    card against CPU at ``reduced`` training images."""
+    import numpy as np
+
+    from keystone_tpu_torch.loaders.cifar import CifarLoader
+    from keystone_tpu_torch.pipelines.images import linear_pixels as lp
+    from keystone_tpu_torch.pipelines.images import random_patch_cifar as rpc
+    from keystone_tpu_torch.utils.stages import StageTimer
+    from keystone_tpu_torch.workflow import Pipeline
+
+    t0 = time.perf_counter()
+    paths = cifar_files(np, root, counts)
+    print(f"cifar data: {counts[0]} training and {counts[1]} test 32x32x3 images in CIFAR-10's binary format, "
+          f"made in {time.perf_counter() - t0:.3f} s (host)")
+    for dtype in (None, "bfloat16"):
+        conf = rpc.RandomPatchCifarConfig(train_path=paths["train"], test_path=paths["test"], feature_dtype=dtype)
+        reset_peak(torch, device)
+        with StageTimer(device) as timer:
+            out = rpc.run(conf, device)
+        print(f"random_patch_cifar ({dtype or 'float32'} features): test error {1 - out['test_accuracy']:.4f}, "
+              f"{out['seconds']:.3f} s (host clock, after loading); peak device memory {peak_gib(torch, device):.3f} GiB")
+        print(f"random_patch_cifar ({dtype or 'float32'}) stages (s, CUDA events): {stages_line(timer)}")
+    reset_peak(torch, device)
+    with StageTimer(device) as timer:
+        out = lp.run(lp.LinearPixelsConfig(train_path=paths["train"], test_path=paths["test"]), device)
+    print(f"linear_pixels: test error {1 - out['test_accuracy']:.4f}, {out['seconds']:.3f} s (host clock, after "
+          f"loading); peak device memory {peak_gib(torch, device):.3f} GiB")
+    print(f"linear_pixels stages (s, CUDA events): {stages_line(timer)}")
+    conv_against_float64(torch, device)
+
+    train, test = CifarLoader.synthetic(n=reduced, seed=1)
+    rconf = rpc.RandomPatchCifarConfig()
+    feats, errs = {}, {}
+    for dev in (device, "cpu"):
+        pipe = rpc.fit(rconf, train.data, train.labels, dev)
+        with torch.inference_mode():
+            feats[dev] = Pipeline(list(pipe.stages)[:-2])(torch.from_numpy(test.data).to(dev)).cpu()
+        errs[dev] = float((rpc.predict(pipe, test.data, dev) != test.labels).mean())
+    within({"test features (rel. to max)": (rel_to_max(torch, feats[device], feats["cpu"]), CIFAR_FEATURE_RTOL),
+            "test error (abs)": (abs(errs[device] - errs["cpu"]), FIT_ERROR_TOL)},
+           f"random_patch_cifar, card against cpu, {reduced} training images (errors {errs[device]:.4f} / "
+           f"{errs['cpu']:.4f})")
+
+
+def other_pipelines(torch, fvo, device="cuda") -> dict:
+    """VOCSIFTFisher, MnistRandomFFT, RandomPatchCifar and LinearPixels at
+    full width. Returns the VOC path's Fisher-vector launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    voc = voc_pipeline(torch, fvo, device)
+    with tempfile.TemporaryDirectory() as root:
+        mnist_pipeline(torch, root, device)
+        cifar_pipelines(torch, root, device)
+    print(f"other pipelines: {time.perf_counter() - t0:.3f} s")
+    return voc
+
+
 def main() -> int:
     # CUPTI stays attached between profiles, so that a graph captured after
     # one is traced kernel by kernel in the next (torch's profiler does the
@@ -1648,6 +2011,19 @@ def main() -> int:
     phase("fit, real data")
     real_launches = fit_real(torch, fitted)
 
+    phase("other pipelines")
+    voc = other_pipelines(torch, fvo)
+    # The kernel at VOCSIFTFisher's shape: 841 descriptors of a 128x128
+    # image, d = 64, k = 16, in the fit's and scorer's batches of 64 and
+    # for one image. The kernel pads components to 256, so it does the
+    # products of k = 256; the bound is that of k = 16.
+    voc_shape = {B: time_fv(torch, fvo, B, VOC_M, d, VOC_K) for B in (64, 1)}
+    for B, t in voc_shape.items():
+        padded = 3 * 8.0 * B * VOC_M * k * d / TF32_PEAK_FLOPS * 1e3
+        print(f"fv kernel at VOC's shape, B={B}: {t['ms']:.4f} ms on the device; bound at k={VOC_K} "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 bound of the padded k={k} work {padded:.4f} ms")
+    max_err = max(max_err, *(t["max_abs_err"] for t in voc_shape.values()))
+
     phase("kernels")
     kernels = [{
         "name": "fisher_vector",
@@ -1655,7 +2031,8 @@ def main() -> int:
         "source": "keystone_tpu_torch/csrc/fisher_vector.cu",
         "replaces": "keystone_tpu/ops/fisher_vector_pallas.py:108",
         "launches": (served["launches"] + served["service_launches"] + fitted["launches"]
-                     + fitted["served_launches"] + sum(streamed["launches"].values()) + real_launches),
+                     + fitted["served_launches"] + sum(streamed["launches"].values()) + real_launches
+                     + voc["launches"]),
         "launches_by_path": {
             "serve, graphs": served["launches"],
             "service": served["service_launches"],
@@ -1663,6 +2040,7 @@ def main() -> int:
             "serve fitted": fitted["served_launches"],
             **streamed["launches"],
             "fit streamed, real data": real_launches,
+            "voc": voc["launches"],
         },
         "max_abs_err": max_err,
         "ms": timing["ms"],
@@ -1677,6 +2055,9 @@ def main() -> int:
         "f32_bound_ms": timing["f32_bound_ms"],
         "ms_streamed_shapes": {f"B={B} m={m}": t["ms"] for (B, m), t in streamed_shapes.items()},
         "bound_ms_streamed_shapes": {f"B={B} m={m}": t["bound_ms"] for (B, m), t in streamed_shapes.items()},
+        "ms_voc_shape": {f"B={B} m={VOC_M} k={VOC_K}": t["ms"] for B, t in voc_shape.items()},
+        "plain_ms_voc_shape": {f"B={B} m={VOC_M} k={VOC_K}": t["plain_ms"] for B, t in voc_shape.items()},
+        "bound_ms_voc_shape": {f"B={B} m={VOC_M} k={VOC_K}": t["bound_ms"] for B, t in voc_shape.items()},
     }]
     if min(kernels[0]["launches_by_path"].values()) < 1:
         raise AssertionError("fisher_vector was not launched on every path")

@@ -7,9 +7,12 @@ On the card both of PyTorch's TF32 switches matter:
   set again by ``resolve_device`` whenever it hands out a CUDA device; the
   solver turns it on around its own products only, and only at the
   ``high`` and ``default`` precisions (``linalg/row_matrix.py``);
-- ``torch.backends.cudnn.allow_tf32`` defaults to True, so the SIFT
-  convolutions turn it off around their own calls (``ops/sift.py``) — the
-  JAX code asks for ``Precision.HIGHEST`` there on purpose.
+- ``torch.backends.cudnn.allow_tf32`` defaults to True, so every
+  convolution of the port sets it around its own call (``cudnn_tf32``):
+  off for the SIFT convolutions (``ops/sift.py``), where the JAX code asks
+  for ``Precision.HIGHEST`` on purpose, and for the ``Convolver`` in
+  float32; on for the ``Convolver``'s bfloat16 mode
+  (``nodes/images/convolver.py``).
 
 The solver's modes are the reference's ``config.solver_precision`` and
 ``config.solver_storage_dtype`` (``keystone_tpu/config.py:95-126``). Here
@@ -32,6 +35,7 @@ even when exported after import. The fault-injection knobs of
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -48,6 +52,17 @@ SOLVER_STORAGE_DTYPES = ("float32", "bfloat16")
 # whether an estimator streams its features from the host. The serving
 # planner budgets against it where the device reports no memory (the CPU).
 HBM_BUDGET_BYTES = 12 * (1 << 30)
+
+
+@contextmanager
+def cudnn_tf32(enabled: bool):
+    """Sets cuDNN's TF32 switch for the block and restores it after."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def _choice(name: str, value: Optional[str], choices: tuple, default: str) -> str:

@@ -1,5 +1,5 @@
-"""Carries a fitted ImageNetSiftLcsFV pipeline's parameters into and out of
-the port.
+"""Carries fitted pipelines' parameters into (and the ImageNet pipeline's
+out of) the port.
 
 ``params_from_numpy`` takes a dict of arrays (numpy or tensors) under these
 keys and builds the port's fitted modules on ``device``; ``params_to_numpy``
@@ -13,18 +13,35 @@ is its inverse, from a pipeline the port fitted:
 With the JAX package, the arrays are its fitted ``PCATransformer``
 (``components``, ``mean``), ``FisherVector`` (``weights``, ``means``,
 ``variances``) and ``BlockLinearMapper`` (``W``, ``blocks``, ``b``).
+
+The other image pipelines' parameters, each function taking numpy arrays
+(or tensors) as the JAX package's fitted nodes hold them:
+
+- ``random_sign_nodes``: MnistRandomFFT's ``RandomSignNode.signs``, one
+  (dim,) ±1 vector a branch;
+- ``convolver_from_numpy``: RandomPatchCifar's ``Convolver`` with the ZCA
+  folded in, its ``filters`` (nf, fh, fw, c) and ``bias`` (nf,);
+- ``zca_from_numpy``: a ``ZCAWhitener``'s ``whitener`` (d, d) and ``mean``;
+- ``linear_mapper_from_numpy``: a ``LinearMapper``'s ``W`` (d, k) and ``b``;
+- ``voc_params_from_numpy``: VOCSIFTFisher's one branch and head, under
+  the ImageNet keys ``sift.pca.*``, ``sift.gmm.*`` and ``head.*``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import numpy as np
 
 from keystone_tpu_torch.config import resolve_device
+from keystone_tpu_torch.nodes.images.convolver import Convolver
 from keystone_tpu_torch.nodes.images.external.fisher_vector import FisherVector
 from keystone_tpu_torch.nodes.learning.block_least_squares import BlockLinearMapper
+from keystone_tpu_torch.nodes.learning.linear_mapper import LinearMapper
 from keystone_tpu_torch.nodes.learning.pca import PCATransformer
+from keystone_tpu_torch.nodes.learning.zca import ZCAWhitener
+from keystone_tpu_torch.nodes.stats.random_signs import RandomSignNode
 
 BRANCHES = ("sift", "lcs")
 
@@ -41,20 +58,51 @@ class ServingParams:
     head: BlockLinearMapper
 
 
+def _branch(d: dict, br: str, device):
+    pca = PCATransformer(d[f"{br}.pca.components"], d.get(f"{br}.pca.mean"), device=device)
+    fv = FisherVector(d[f"{br}.gmm.weights"], d[f"{br}.gmm.means"], d[f"{br}.gmm.variances"],
+                      device=device)
+    return pca, fv
+
+
+def _head(d: dict, device) -> BlockLinearMapper:
+    blocks = [tuple(int(v) for v in se) for se in np.array(d["head.blocks"])]
+    return BlockLinearMapper(d["head.W"], blocks, d.get("head.b"), device=device)
+
+
 def params_from_numpy(d: dict, device=None) -> ServingParams:
     device = resolve_device(device)
     mods = {}
     for br in BRANCHES:
-        mods[f"{br}_pca"] = PCATransformer(
-            d[f"{br}.pca.components"], d.get(f"{br}.pca.mean"), device=device
-        )
-        mods[f"{br}_fv"] = FisherVector(
-            d[f"{br}.gmm.weights"], d[f"{br}.gmm.means"], d[f"{br}.gmm.variances"],
-            device=device,
-        )
-    blocks = [tuple(int(v) for v in se) for se in np.asarray(d["head.blocks"])]
-    mods["head"] = BlockLinearMapper(d["head.W"], blocks, d.get("head.b"), device=device)
-    return ServingParams(**mods)
+        mods[f"{br}_pca"], mods[f"{br}_fv"] = _branch(d, br, device)
+    return ServingParams(**mods, head=_head(d, device))
+
+
+def voc_params_from_numpy(d: dict, device=None):
+    """(PCATransformer, FisherVector, BlockLinearMapper) of a fitted
+    VOCSIFTFisher from the ``sift.*`` and ``head.*`` keys."""
+    device = resolve_device(device)
+    return (*_branch(d, "sift", device), _head(d, device))
+
+
+def random_sign_nodes(signs: Sequence, device=None) -> list:
+    """One ``RandomSignNode`` per (dim,) sign vector."""
+    return [RandomSignNode(np.array(s), device=device) for s in signs]
+
+
+def convolver_from_numpy(filters, bias=None, stride: int = 1,
+                         compute_dtype: Optional[str] = None, device=None) -> Convolver:
+    """A ``Convolver`` of filters with the whitener already folded in."""
+    return Convolver(np.array(filters), stride=stride, compute_dtype=compute_dtype,
+                     device=device, bias=None if bias is None else np.array(bias))
+
+
+def zca_from_numpy(whitener, mean, device=None) -> ZCAWhitener:
+    return ZCAWhitener(np.array(whitener), np.array(mean), device=device)
+
+
+def linear_mapper_from_numpy(W, b=None, device=None) -> LinearMapper:
+    return LinearMapper(np.array(W), None if b is None else np.array(b), device=device)
 
 
 def params_to_numpy(pipeline) -> dict:

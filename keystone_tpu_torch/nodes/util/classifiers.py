@@ -1,11 +1,20 @@
 """Prediction post-processing (counterpart of
-keystone_tpu/nodes/util/classifiers.py::TopKClassifier)."""
+keystone_tpu/nodes/util/classifiers.py: ``MaxClassifier`` :15 and
+``TopKClassifier``)."""
 
 from __future__ import annotations
 
 import torch
 
 from keystone_tpu_torch.workflow import Transformer
+
+
+class MaxClassifier(Transformer):
+    """The index of the largest score, as int32 (the first on a tie, as
+    ``jnp.argmax``)."""
+
+    def apply_batch(self, scores):
+        return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
 class TopKClassifier(Transformer):

@@ -13,35 +13,25 @@ Gaussian times bilinear cell weights along y and along x, so extraction is
 
 Layouts at the boundary match the reference ((n, h, w) in, (n, nkp, 128)
 out); inside, the orientation channels are NCHW for ``F.conv2d``. The
-convolutions run with cuDNN TF32 off (``no_cudnn_tf32``).
+convolutions run with cuDNN TF32 off (``config.cudnn_tf32(False)``): cuDNN
+runs float32 convolutions in TF32 by default, which keeps about three
+decimal digits, and the descriptor convolutions must stay float32, as the
+JAX reference's ``Precision.HIGHEST`` asks.
 """
 
 from __future__ import annotations
 
 import functools
-from contextlib import contextmanager
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from keystone_tpu_torch.config import cudnn_tf32
+
 ORI_BINS = 8
 SPATIAL_BINS = 4
 DESC_DIM = SPATIAL_BINS * SPATIAL_BINS * ORI_BINS  # 128
-
-
-@contextmanager
-def no_cudnn_tf32():
-    """Turns cuDNN's TF32 off for the block and restores it after. cuDNN
-    runs float32 convolutions in TF32 by default, which keeps about three
-    decimal digits; the descriptor convolutions must stay float32, as the
-    JAX reference's ``Precision.HIGHEST`` asks."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = before
 
 
 def _cell_kernels(bin_size: int) -> np.ndarray:
@@ -122,7 +112,7 @@ def dense_sift(images: torch.Tensor, step: int = 4, bin_size: int = 4) -> torch.
     # channels ordered (b, cy). x-pass: each (b, cy) gives 4 cell-x
     # responses, channels ordered (b, cy, cx).
     fy, fx, perm = _device_constants(bin_size, images.device)
-    with no_cudnn_tf32():
+    with cudnn_tf32(False):
         out = F.conv2d(ori, fy, stride=(step, 1), groups=ORI_BINS)
         out = F.conv2d(out, fx, stride=(1, step), groups=ORI_BINS * SPATIAL_BINS)
     ny, nx = out.shape[2], out.shape[3]

@@ -35,6 +35,14 @@ launches (one per branch) that its graph holds, which capture itself does
 not count. A batch already on the card, and a batch given as request
 blocks, give the host batch's bits.
 
+The other image pipelines' parts on the card against the CPU: the
+Convolver in float32 (cuDNN's TF32 off) within 1e-5 of the largest
+|output|, in bfloat16 within 1e-4 (bfloat16 operands, float32 sums; TF32
+holds a bfloat16 value exactly) and with TF32 left as it was; the FFT
+features within rtol 1e-5, atol 1e-5; the normal equations and TSQR on a
+well-conditioned system within rtol 1e-4, atol 1e-5. MnistRandomFFT fitted
+on the card predicts as on the CPU but for at most one of 256 test rows.
+
 A small fit of the whole pipeline on the card is held against the same fit
 on the CPU: both draw the same random numbers, and differ only in rounding.
 PCA components up to sign at atol 1e-3 (rounding rotates components whose
@@ -101,6 +109,8 @@ def _gmm_case(B, m, d, k, seed, zero_component=False, var_range=(0.5, 1.5), mu_s
         (16, 3721, 64, 256, False),
         (64, 3721, 64, 256, False),
         (2, 500, 8, 5, False),  # k not a multiple of the 8-wide MMA tile
+        (64, 841, 64, 16, False),  # VOCSIFTFisher: 128x128 images, k = 16
+        (1, 841, 64, 16, False),
     ],
 )
 def test_kernel_matches_plain(cuda, B, m, d, k, zero_component):
@@ -325,3 +335,43 @@ def test_rows_on_the_card_and_in_blocks_equal_the_host_batch(cuda):
     np.testing.assert_array_equal(engine(torch.from_numpy(X).to(cuda)), want)
     # Request blocks written into the pinned slot at their offsets.
     np.testing.assert_array_equal(engine._call_parts([X[:1], X[1:]]).wait(), want)
+
+
+def test_convolver_on_the_card_matches_the_cpu(cuda):
+    from keystone_tpu_torch.nodes.images.convolver import Convolver
+
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.uniform(size=(4, 32, 32, 3)).astype(np.float32))
+    F = rng.normal(size=(16, 6, 6, 3)).astype(np.float32)
+    before = torch.backends.cudnn.allow_tf32
+    for dtype, tol in ((None, 1e-5), ("bfloat16", 1e-4)):
+        want = Convolver(F, compute_dtype=dtype, device="cpu")(X)
+        got = Convolver(F, compute_dtype=dtype, device=cuda)(X.to(cuda)).cpu()
+        assert (got - want).abs().max() <= tol * want.abs().max()
+        assert torch.backends.cudnn.allow_tf32 == before
+
+
+def test_fft_and_solvers_on_the_card_match_the_cpu(cuda):
+    from keystone_tpu_torch.linalg.normal_equations import solve_least_squares_normal
+    from keystone_tpu_torch.linalg.tsqr import solve_least_squares_tsqr
+    from keystone_tpu_torch.nodes.stats.fft import PaddedFFT
+
+    rng = np.random.default_rng(3)
+    X = torch.from_numpy(rng.normal(size=(8, 784)).astype(np.float32))
+    torch.testing.assert_close(PaddedFFT()(X.to(cuda)).cpu(), PaddedFFT()(X), rtol=1e-5, atol=1e-5)
+    A = torch.from_numpy(rng.normal(size=(512, 32)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(512, 4)).astype(np.float32))
+    for solve in (solve_least_squares_normal, solve_least_squares_tsqr):
+        torch.testing.assert_close(solve(A.to(cuda), B.to(cuda), 0.5).cpu(), solve(A, B, 0.5),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_mnist_fit_on_the_card_predicts_as_the_cpu(cuda):
+    from keystone_tpu_torch.loaders.mnist import MnistLoader
+    from keystone_tpu_torch.pipelines.images import mnist_random_fft as mnist
+
+    conf = mnist.MnistRandomFFTConfig(num_ffts=2, synthetic_n=1024)
+    train, test = MnistLoader.synthetic(n=conf.synthetic_n)
+    preds = [mnist.predict(mnist.build_pipeline(conf, train.data, train.labels, device=dev), test.data, dev)
+             for dev in (cuda, "cpu")]
+    assert (preds[0] != preds[1]).sum() <= 1

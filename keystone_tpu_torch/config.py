@@ -26,7 +26,8 @@ The serving knobs are the reference's (``keystone_tpu/config.py:245-300``,
 ``KEYSTONE_SERVE_*`` variables with the same defaults when the module is
 imported: the bucket ladder, its top, the serving precision, the replica
 pool's width, the in-flight window, the pending-queue bound, the default
-deadline and the planner switch. ``resolved_serve_buckets`` reads
+deadline and the planner switch. ``text_sparse_threshold`` is the
+reference's (``:357``), a plain field. ``resolved_serve_buckets`` reads
 ``KEYSTONE_SERVE_BUCKETS`` live, so an exported ladder pins the engine's
 even when exported after import. The fault-injection knobs of
 ``utils/reliability.py`` live here too (the reference's ``:360-389``).
@@ -188,6 +189,10 @@ class Config:
     # Fault injection ('site:value,...') and its seed (utils/reliability.py).
     faults: str = field(default_factory=lambda: os.environ.get("KEYSTONE_FAULTS", ""))
     faults_seed: int = field(default_factory=lambda: _env_int("KEYSTONE_FAULTS_SEED", 0))
+    # Vocabulary size at which the text vectorizers give a host CSR
+    # ``SparseBatch`` in place of a dense (n, vocab) array (the reference's
+    # config.text_sparse_threshold).
+    text_sparse_threshold: int = 16384
 
 
 config = Config()

@@ -25,6 +25,20 @@ The other image pipelines' parameters, each function taking numpy arrays
 - ``linear_mapper_from_numpy``: a ``LinearMapper``'s ``W`` (d, k) and ``b``;
 - ``voc_params_from_numpy``: VOCSIFTFisher's one branch and head, under
   the ImageNet keys ``sift.pca.*``, ``sift.gmm.*`` and ``head.*``.
+
+The speech and text pipelines' fitted nodes, from the arrays of the JAX
+package's nodes of the same names:
+
+- ``standard_scaler_from_numpy``: a ``StandardScalerModel``'s ``mean`` and
+  ``std`` (None when fitted without it);
+- ``random_features_from_numpy``: a ``CosineRandomFeatures``' ``W`` (d, D),
+  γ already applied, and ``b`` (D,);
+- ``naive_bayes_from_numpy``: a ``NaiveBayesModel``'s ``log_prior`` (k,)
+  and ``log_likelihood`` (k, d);
+- ``logistic_regression_from_numpy``: a ``LogisticRegressionModel``'s ``W``
+  (d, k) and ``b`` (k,);
+- ``vectorizer_from_index``: a ``SparseFeatureVectorizer``'s term ``index``
+  ({term: column}).
 """
 
 from __future__ import annotations
@@ -39,9 +53,14 @@ from keystone_tpu_torch.nodes.images.convolver import Convolver
 from keystone_tpu_torch.nodes.images.external.fisher_vector import FisherVector
 from keystone_tpu_torch.nodes.learning.block_least_squares import BlockLinearMapper
 from keystone_tpu_torch.nodes.learning.linear_mapper import LinearMapper
+from keystone_tpu_torch.nodes.learning.logistic_regression import LogisticRegressionModel
+from keystone_tpu_torch.nodes.learning.naive_bayes import NaiveBayesModel
 from keystone_tpu_torch.nodes.learning.pca import PCATransformer
 from keystone_tpu_torch.nodes.learning.zca import ZCAWhitener
+from keystone_tpu_torch.nodes.nlp.encoders import SparseFeatureVectorizer
+from keystone_tpu_torch.nodes.stats.random_features import CosineRandomFeatures
 from keystone_tpu_torch.nodes.stats.random_signs import RandomSignNode
+from keystone_tpu_torch.nodes.stats.scalers import StandardScalerModel
 
 BRANCHES = ("sift", "lcs")
 
@@ -103,6 +122,26 @@ def zca_from_numpy(whitener, mean, device=None) -> ZCAWhitener:
 
 def linear_mapper_from_numpy(W, b=None, device=None) -> LinearMapper:
     return LinearMapper(np.array(W), None if b is None else np.array(b), device=device)
+
+
+def standard_scaler_from_numpy(mean, std=None, device=None) -> StandardScalerModel:
+    return StandardScalerModel(np.array(mean), None if std is None else np.array(std), device=device)
+
+
+def random_features_from_numpy(W, b, device=None) -> CosineRandomFeatures:
+    return CosineRandomFeatures(np.array(W), np.array(b), device=device)
+
+
+def naive_bayes_from_numpy(log_prior, log_likelihood, device=None) -> NaiveBayesModel:
+    return NaiveBayesModel(np.array(log_prior), np.array(log_likelihood), device=device)
+
+
+def logistic_regression_from_numpy(W, b, device=None) -> LogisticRegressionModel:
+    return LogisticRegressionModel(np.array(W), np.array(b), device=device)
+
+
+def vectorizer_from_index(index, sparse="auto") -> SparseFeatureVectorizer:
+    return SparseFeatureVectorizer(index, sparse=sparse)
 
 
 def params_to_numpy(pipeline) -> dict:

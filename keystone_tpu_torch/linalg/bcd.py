@@ -33,11 +33,12 @@ The solver's modes (``config.py``) are arguments of both solves:
   grams, inverses and objectives stay float32. A streamed block is
   centered in float32 and then rounded, once.
 
-The streamed solve keeps A in host memory, the caller's array, and sends
-one column block at a time to the device: a prefetch thread prepares the
-blocks (a contiguous copy, centered by ``col_center``) into pinned buffers
-two ahead, and block i+1's copy runs on a copy stream while block i updates
-(``utils/staging.py``). Its first epoch forms each block's inverse as it
+The streamed solve keeps A in host memory, the caller's array or a CSR
+``SparseBatch`` (``bcd.py:1019-1050``), and sends one column block at a
+time to the device: a prefetch thread prepares the blocks (a contiguous
+copy, centered by ``col_center``; a sparse block densified) into pinned
+buffers two ahead, and block i+1's copy runs on a copy stream while block
+i updates (``utils/staging.py``). Its first epoch forms each block's inverse as it
 visits it (the reference's ``_first_epoch_update_fn``) and keeps it; later
 epochs reuse it.
 
@@ -72,6 +73,7 @@ from keystone_tpu_torch.config import solver_precision
 from keystone_tpu_torch.linalg.row_matrix import HBM_BUDGET_BYTES, solver_matmul
 from keystone_tpu_torch.linalg.row_matrix import storage_dtype as storage_dtype_of
 from keystone_tpu_torch.loaders.stream import PREFETCH_DEPTH, PrefetchIterator
+from keystone_tpu_torch.utils.sparse import SparseBatch
 from keystone_tpu_torch.utils.stages import active, elapsed_s, mark, note, stamp
 from keystone_tpu_torch.utils.staging import HostStager
 
@@ -293,9 +295,11 @@ def block_coordinate_descent(
 # -- streamed -------------------------------------------------------------
 
 
-def host_matrix(A) -> torch.Tensor:
+def host_matrix(A):
     """``A`` (a host array or a CPU tensor) as a float32 CPU tensor, without
-    a copy when it is float32 already."""
+    a copy when it is float32 already; a ``SparseBatch`` as it is."""
+    if isinstance(A, SparseBatch):
+        return A
     if isinstance(A, torch.Tensor):
         if A.device.type != "cpu":
             raise ValueError(f"a streamed solve takes A in host memory, not on {A.device}")
@@ -314,11 +318,19 @@ def host_matrix(A) -> torch.Tensor:
 _PREP_PANEL_BYTES = 16 << 20
 
 
-def prepare_block(A: torch.Tensor, center: Optional[torch.Tensor], s: int, e: int, out: torch.Tensor) -> None:
+def prepare_block(A, center: Optional[torch.Tensor], s: int, e: int, out: torch.Tensor) -> None:
     """Writes columns ``s:e`` of the float32 host matrix ``A``, minus
     ``center[s:e]``, into ``out`` in ``out``'s dtype: centered in float32,
     then rounded once. Rounding first would leave the centered values with
-    the rounding error of the uncentered magnitude."""
+    the rounding error of the uncentered magnitude. A ``SparseBatch``'s
+    block is densified into ``out`` (zeros, then its entries)."""
+    if isinstance(A, SparseBatch):
+        if center is not None:
+            raise ValueError("a sparse A is not centered (its intercept is a ones column)")
+        rows, cols, vals = (torch.from_numpy(a) for a in A.block_entries(s, e))
+        out.zero_()
+        out[rows, cols.long()] = vals.to(out.dtype)
+        return
     rows = max(1, _PREP_PANEL_BYTES // (4 * (e - s)))
     for r in range(0, A.shape[0], rows):
         if center is None:
@@ -366,8 +378,11 @@ def block_coordinate_descent_streamed(
     start_epoch = start_block = 0
     fingerprint = None
     if checkpoint_dir is not None:
-        shift = 0.0 if center is None else 2.0 * float(center.sum())
-        a_probe = float(A[0].sum() + A[-1].sum()) - shift
+        if isinstance(A, SparseBatch):
+            a_probe = A.row_sum(0) + A.row_sum(n - 1)
+        else:
+            shift = 0.0 if center is None else 2.0 * float(center.sum())
+            a_probe = float(A[0].sum() + A[-1].sum()) - shift
         fingerprint = _fingerprint(n, d, k, block_size, lam, row_weights is not None, dtype, a_probe, B)
         state = _latest_epoch(checkpoint_dir, fingerprint, device)
         if state is not None:

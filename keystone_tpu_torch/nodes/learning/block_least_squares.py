@@ -26,9 +26,16 @@ Counterpart of ``keystone_tpu/nodes/learning/block_least_squares.py``:
   solve's mid-epoch snapshots, resumed by a later fit of the same problem;
 - ``BlockWeightedLeastSquaresEstimator``: class-rebalanced row weights,
   ``(1 − mixture_weight) + mixture_weight · n / (k · n_c)`` for a row of
-  class c.
+  class c;
+- a ``SparseBatch`` (``_fit_sparse``, the reference's ``:316-349``): the
+  features stay CSR in host memory and the streamed solve densifies one
+  column block at a time on its prefetch thread. Centering would destroy
+  sparsity, so the intercept is the weight of an appended all-ones
+  column, ridge-penalised like the others when λ > 0 (exact at λ = 0).
+  ``BlockLinearMapper`` takes a ``SparseBatch`` too, as a CSR tensor on its
+  device times W.
 
-Sparse input and the model-parallel ring are not ported.
+The model-parallel ring is not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from keystone_tpu_torch.linalg.row_matrix import (
     storage_dtype,
     weighted_col_sums,
 )
+from keystone_tpu_torch.utils.sparse import SparseBatch
 from keystone_tpu_torch.utils.stages import mark
 from keystone_tpu_torch.workflow import LabelEstimator, Transformer
 
@@ -72,6 +80,9 @@ class BlockLinearMapper(Transformer):
         )
 
     def apply_batch(self, X):
+        if isinstance(X, SparseBatch):
+            out = X.to_torch(self.W.device) @ self.W
+            return out if self.b is None else out + self.b
         out = None
         for s, e in self.blocks:
             contrib = X[..., s:e] @ self.W[s:e]
@@ -117,6 +128,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         return None
 
     def fit(self, data, labels) -> BlockLinearMapper:
+        if isinstance(data, SparseBatch):
+            return self._fit_sparse(data, labels)
         stream = self.stream
         if stream is None:
             itemsize = torch.finfo(default_dtype).bits // 8
@@ -163,6 +176,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         # Features on the card come to the host, as the reference's
         # np.asarray brings a device array there.
         X = host_matrix(data.cpu() if on_card else data)
+        if on_card:
+            mark("copy of the features to the host")
         Y = as_input(labels, device).to(device)
         weights = self._weights(Y)
         x_mean = y_mean = None
@@ -192,6 +207,31 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         W = torch.cat(W_blocks, dim=0)
         b = None if y_mean is None else y_mean - solver_matmul(
             x_mean.to(device)[None, :], W, solver_precision(self.precision))[0]
+        return BlockLinearMapper(W, blocks, b, device=device)
+
+    def _fit_sparse(self, data: SparseBatch, labels) -> BlockLinearMapper:
+        on_card = isinstance(labels, torch.Tensor) and labels.device.type != "cpu"
+        device = resolve_device(labels.device if on_card else self.device)
+        Y = as_input(labels, device).to(device)
+        A = data.append_ones() if self.fit_intercept else data
+        W_blocks, blocks = block_coordinate_descent_streamed(
+            A, Y,
+            block_size=resolve_block_size(self.block_size, data.shape[1], device),
+            num_iters=self.num_iters,
+            lam=self.lam,
+            row_weights=self._weights(Y),
+            checkpoint_dir=self.checkpoint_dir,
+            precision=self.precision,
+            storage_dtype=self.storage_dtype,
+        )
+        W = torch.cat(W_blocks, dim=0)
+        b = None
+        if self.fit_intercept:
+            # The ones column's weight is b; its column leaves the last block.
+            W, b = W[:-1], W[-1]
+            s, e = blocks.pop()
+            if e - s > 1:
+                blocks.append((s, e - 1))
         return BlockLinearMapper(W, blocks, b, device=device)
 
 

@@ -66,6 +66,14 @@ def elapsed_s(t0, t1) -> float:
     return t0.elapsed_time(t1) / 1e3 if isinstance(t0, torch.cuda.Event) else t1 - t0
 
 
+def synced_clock(device) -> float:
+    """The host clock once ``device``'s queued work has finished."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
 def active() -> Optional[StageTimer]:
     """The active timer of the current context, if any."""
     return _ACTIVE.get()

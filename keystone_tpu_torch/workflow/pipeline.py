@@ -8,7 +8,17 @@ here is a list of ``nn.Module`` stages applied in order, and a gather runs
 its branches on the same input and concatenates their outputs on the last
 axis. ``and_then(estimator, data[, labels])`` fits eagerly: it applies the
 pipeline to ``data`` in batches, fits the estimator on the result and
-appends what it fitted. ``apply_batches`` streams row batches through a
+appends what it fitted.
+
+Host stages (``host_stage = True``; the reference's ``jittable = False``,
+``:79-96``) take and return host objects: strings, token lists, term maps,
+numpy arrays or a ``utils/sparse.py::SparseBatch``. Their ``apply`` works on
+one datum and ``apply_batch`` defaults to a list of ``apply`` over the
+batch. A pipeline of host stages only is itself one; ``and_then`` applies
+it to the whole of the fit data at once and gives the estimator what it
+returns, and the labels as they came. ``Estimator.with_data`` and
+``LabelEstimator.with_data`` (``:425-460``) fit at once and give a
+pipeline of the fitted stage. ``apply_batches`` streams row batches through a
 stage, reading them on a prefetch thread and staging them through pinned
 memory (``workflow/pipeline.py::Pipeline.apply_batches``, ``:551-601``), or
 with ``engine=`` through a serving engine's replica pool.
@@ -38,6 +48,10 @@ class Estimator:
     def fit(self, data) -> nn.Module:
         raise NotImplementedError
 
+    def with_data(self, data) -> "Pipeline":
+        """A pipeline of this estimator fitted on ``data``."""
+        return Pipeline([self.fit(data)])
+
 
 class LabelEstimator:
     """``fit(data, labels) -> Transformer``."""
@@ -45,16 +59,25 @@ class LabelEstimator:
     def fit(self, data, labels) -> nn.Module:
         raise NotImplementedError
 
+    def with_data(self, data, labels) -> "Pipeline":
+        """A pipeline of this estimator fitted on ``data`` and ``labels``."""
+        return Pipeline([self.fit(data, labels)])
+
 
 class Transformer(nn.Module):
     """A batch-in/batch-out stage. ``row_independent`` says that row i of
     the output depends only on row i of the input, which is what lets the
-    serving layer pad a batch up to its bucket and slice the padding off."""
+    serving layer pad a batch up to its bucket and slice the padding off.
+    ``host_stage`` marks a stage of host objects (module docstring); such a
+    stage overrides ``apply`` (one datum) or ``apply_batch``."""
 
     row_independent: bool = True
+    host_stage: bool = False
 
     def apply_batch(self, X):
-        raise NotImplementedError
+        if not self.host_stage or type(self).apply is nn.Module.apply:
+            raise NotImplementedError(f"{type(self).__name__} must override apply_batch() or apply()")
+        return [self.apply(x) for x in X]
 
     def forward(self, X):
         return self.apply_batch(X)
@@ -129,6 +152,9 @@ class Pipeline(Transformer):
         self.row_independent = all(
             getattr(s, "row_independent", True) for s in self.stages
         )
+        self.host_stage = len(self.stages) > 0 and all(
+            getattr(s, "host_stage", False) for s in self.stages
+        )
 
     def apply_batch(self, X):
         for stage in self.stages:
@@ -138,13 +164,19 @@ class Pipeline(Transformer):
     def and_then(self, nxt, data=None, labels=None, *, device=None) -> "Pipeline":
         """``and_then(module)`` appends a fitted stage.
         ``and_then(estimator, data[, labels])`` fits the estimator on this
-        pipeline applied to ``data`` (in batches on ``device``) and appends
-        the fitted stage."""
+        pipeline applied to ``data`` (in batches on ``device``; a pipeline
+        of host stages to all of ``data`` at once) and appends the fitted
+        stage."""
         if isinstance(nxt, (Estimator, LabelEstimator)):
             if data is None:
                 raise TypeError("fitting an estimator needs its data")
             if isinstance(nxt, LabelEstimator) != (labels is not None):
                 raise TypeError("labels go with a LabelEstimator, and only with one")
+            if self.host_stage:
+                features = self(data)
+                mark("apply the host prefix to the fit data")
+                nxt = nxt.fit(features) if labels is None else nxt.fit(features, labels)
+                return Pipeline([*self.stages, nxt])
             device = resolve_device(device)
             features = self.apply_in_batches(data, device=device)
             mark("apply the prefix to the fit data")

@@ -11,8 +11,10 @@ script exits non-zero:
    and prints what ``ptxas`` and the runtime say of its blocks (registers,
    spills, shared memory, blocks resident per SM);
 3. holds the Fisher-vector kernel against its plain PyTorch version on the
-   card at full width (B=4, m=3721, d=64, k=256), at B=1, at ragged m and
-   with variances near the 1e-4 floor, checks that two launches give the
+   card at full width (B=4, m=3721, d=64, k=256), at B=1, at ragged m,
+   with variances near the 1e-4 floor, at the floor with means fifty
+   standard deviations from 0, and on a mixture the port's EM fits to such
+   descriptors at VOC's shape, checks that two launches give the
    same bits, and at every serving bucket a request of 1, 3, 16 or 64
    images reaches (B = 1, 4, 16, 64) holds it against the plain version
    again and times both;
@@ -111,10 +113,27 @@ script exits non-zero:
    block solver on the same features; and each pipeline at a reduced size
    on the card and on the CPU, scores, predictions and L-BFGS objectives
    compared;
-12. one JSON line with every kernel's launches (on every path: serving
+12. the rest of the learning nodes, the descriptors and the native host
+   library ("learning suite, descriptors, native"): kernel ridge
+   regression on 50,000 of TIMIT's training frames by CG and by Nyström
+   PCG (1,024 landmarks), gamma from the median heuristic (the matvec's
+   time against its bound, iterations, seconds, peak memory, the float64
+   relative residual, test accuracy); ``LeastSquaresEstimator`` on four
+   shapes (its choice and reason, seconds, the float64 residual, the
+   result equal to the concrete estimator's); LDA on 200,000 frames, and
+   card against CPU on 20,000; HOG and DAISY on the full-width phase's
+   8,192 images (images/s, device ms a batch, card against CPU); then the
+   native library: its build, ``auto`` decode (the pool where it built,
+   else PIL, and the batches of each), native SIFT against the device's
+   on VOC's images, the native EM against the torch EM at k = 16, native
+   Fisher vectors against the kernel at VOC's shape on the native EM's
+   mixture (and the kernel against its plain version there), and
+   VOCSIFTFisher with native SIFT end to end;
+13. one JSON line with every kernel's launches (on every path: serving
    through graphs, the service, fitting, serving what was fitted, the streamed fit, plain and TTA
-   streamed scoring, the streamed fit on real data, VOC's fit and scoring; 0 on the speech and
-   text pipelines), error and times: ``ms`` is the kernel's device time
+   streamed scoring, the streamed fit on real data, VOC's fit and scoring, VOC with native SIFT;
+   0 on the speech and text pipelines and on the learning nodes and descriptors), error and
+   times: ``ms`` is the kernel's device time
    per call at B=64 (``torch.profiler``), ``call_ms`` the same call between
    CUDA events, host included.
 
@@ -130,6 +149,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest.mock import patch
 
@@ -254,6 +274,23 @@ def check_fv(torch, fvo, B, m, d, k, seed, **gmm) -> float:
     return held_against_plain(torch, got, ref, f"B={B} m={m} d={d} k={k} {gmm or ''}")
 
 
+def check_fitted_floor(torch, fvo) -> float:
+    """The kernel on a mixture fitted by the port's EM to descriptors of
+    tight clusters (variance 1e-4, means of scale 0.5), at VOCSIFTFisher's
+    shape (B 64, m 841, k 16): the fit puts variances at its 1e-4 floor, as
+    the EM does on real descriptors."""
+    from keystone_tpu_torch.nodes.learning.gmm import GaussianMixtureModelEstimator
+
+    X = gmm_case(64, 841, 64, 16, 9, torch, var_range=(1e-4, 1e-4), mu_scale=0.5)[0]
+    gmm = GaussianMixtureModelEstimator(k=16, max_iters=20, seed=0).fit(X.reshape(-1, 64))
+    w, mu, var = gmm.weights, gmm.means, gmm.variances
+    floor = int((var <= 1e-4 * (1 + 1e-6)).sum())
+    got = fvo.fisher_vectors(X, fvo.fv_operands(w, mu, var))
+    ref = fvo.fisher_vectors_plain(X, w, mu, var)
+    return held_against_plain(torch, got, ref, f"B=64 m=841 d=64 k=16, fitted by EM, {floor} of {var.numel()} "
+                                               f"variances at the floor")
+
+
 def check_repeat(torch, fvo) -> None:
     """Two launches on the same input give the same bits: the splits are
     summed in a fixed order, with no atomics."""
@@ -312,17 +349,21 @@ def time_fv(torch, fvo, B, m, d, k) -> dict:
     ms = device_ms(lambda: fvo.fisher_vectors(X, ops), 20, ("fv_partial_kernel", "fv_reduce_kernel"), torch)
     call_ms = cuda_ms(lambda: fvo.fisher_vectors(X, ops), 20, torch)
     plain_ms = cuda_ms(lambda: fvo.fisher_vectors_plain(X, w, mu, var), 5, torch)
-    flops = 8.0 * B * m * k * d  # two logit products + rᵀx and rᵀx²
+    tc_flops = 4.0 * B * m * k * d  # the logits product, m × 2d × k an image
+    cc_flops = 5.0 * B * m * k * d  # the centred statistics: x - mu, r·(x - mu), two sums
     nbytes = 4.0 * (B * m * d + k + 2 * k * d + B * 2 * k * d)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f32 = flops / F32_PEAK_FLOPS * 1e3
-    t_3xtf32 = 3 * flops / TF32_PEAK_FLOPS * 1e3  # the arithmetic the kernel does
-    bound_ms = max(t_3xtf32, t_bytes)
+    t_f32 = (tc_flops + cc_flops) / F32_PEAK_FLOPS * 1e3
+    # The arithmetic the kernel does: the product in 3xTF32 on the tensor
+    # cores, beside the statistics on the CUDA cores.
+    t_3xtf32 = 3 * tc_flops / TF32_PEAK_FLOPS * 1e3
+    t_cuda_cores = cc_flops / F32_PEAK_FLOPS * 1e3
+    bound_ms = max(t_3xtf32, t_cuda_cores, t_bytes)
     print(
         f"fv timing B={B} m={m}: kernel {ms:.4f} ms on the device (call {call_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms; bounds: 3xTF32 {t_3xtf32:.4f} ms, float32 CUDA cores "
-        f"{t_f32:.4f} ms, bytes {t_bytes:.4f} ms; share of the 3xTF32 bound {bound_ms / ms:.3f}; "
-        f"{flops / ms / 1e9:.3f} TFLOP/s of the float32 work"
+        f"plain {plain_ms:.4f} ms; bounds: 3xTF32 logits {t_3xtf32:.4f} ms, centred statistics on the CUDA "
+        f"cores {t_cuda_cores:.4f} ms, all in float32 on the CUDA cores {t_f32:.4f} ms, bytes {t_bytes:.4f} ms; "
+        f"share of the bound {bound_ms / ms:.3f}; {(tc_flops + cc_flops) / ms / 1e9:.3f} TFLOP/s of the float32 work"
     )
     return {
         "max_abs_err": max_abs,
@@ -330,7 +371,7 @@ def time_fv(torch, fvo, B, m, d, k) -> dict:
         "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if t_3xtf32 >= t_bytes else "bytes",
+        "bound_by": "operations" if max(t_3xtf32, t_cuda_cores) >= t_bytes else "bytes",
         "f32_bound_ms": t_f32,
     }
 
@@ -1494,12 +1535,12 @@ def jpeg_dataset(np, root: str, seed: int = 0) -> dict:
             "label_map_path": os.path.join(root, "labels.txt"), "bytes": nbytes}
 
 
-def fit_real(torch, eager) -> int:
+def fit_real(torch, eager, root: str) -> tuple:
     """Decode against featurize throughput on the card, the first streamed
-    batch against ``load``, then ``run_streamed`` end to end on the JPEGs.
-    Returns the Fisher-vector launches of that run."""
+    batch against ``load``, then ``run_streamed`` end to end on the JPEGs,
+    written under ``root``. Returns the Fisher-vector launches of that run
+    and the JPEGs' paths."""
     import os
-    import tempfile
 
     import numpy as np
 
@@ -1513,75 +1554,74 @@ def fit_real(torch, eager) -> int:
 
     cores = os.cpu_count() or 1
     workers = decode_pool_workers(None)
-    with tempfile.TemporaryDirectory(prefix="keystone-smoke-jpeg-") as root:
-        t0 = time.perf_counter()
-        paths = jpeg_dataset(np, root)
-        n_train, n_test = REAL_SYNSETS * REAL_TRAIN_PER, REAL_SYNSETS * REAL_TEST_PER
-        print(f"dataset: {REAL_SYNSETS} synsets (half .tar, half directories), {n_train} training and {n_test} "
-              f"test JPEGs of {REAL_W}x{REAL_H} at quality 90, {paths.pop('bytes') / 2**20:.1f} MiB, encoded in "
-              f"{time.perf_counter() - t0:.3f} s (host, not part of the phase)")
-        label_map = ImageNetLoader.load_label_map(paths["label_map_path"])
+    t0 = time.perf_counter()
+    paths = jpeg_dataset(np, root)
+    n_train, n_test = REAL_SYNSETS * REAL_TRAIN_PER, REAL_SYNSETS * REAL_TEST_PER
+    print(f"dataset: {REAL_SYNSETS} synsets (half .tar, half directories), {n_train} training and {n_test} "
+          f"test JPEGs of {REAL_W}x{REAL_H} at quality 90, {paths.pop('bytes') / 2**20:.1f} MiB, encoded in "
+          f"{time.perf_counter() - t0:.3f} s (host, not part of the phase)")
+    label_map = ImageNetLoader.load_label_map(paths["label_map_path"])
 
-        t0 = time.perf_counter()
-        train = ImageNetLoader.load(paths["data_path"], label_map)
-        load_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        first, n_streamed = None, 0
-        for X, y in ImageNetLoader.stream_batches(paths["data_path"], label_map, batch_size=256):
-            first = (X, y) if first is None else first
-            n_streamed += len(X)
-        stream_s = time.perf_counter() - t0
-        for name, secs in (("load", load_s), ("stream_batches (batches of 256)", stream_s)):
-            print(f"decode, {name}: {n_train} images to 256x256 in {secs:.3f} s = {n_train / secs:.1f} images/s, "
-                  f"{n_train / secs / cores:.1f} per host core ({cores} cores, {workers} decode threads)")
-        same = np.array_equal(first[0], train.data[:256]) and np.array_equal(first[1], train.labels[:256])
-        print(f"first streamed batch equal to load's first 256 images bit for bit: {same}")
-        if not same or n_streamed != n_train or train.data.shape != (n_train, 256, 256, 3):
-            raise AssertionError("stream_batches disagrees with load")
+    t0 = time.perf_counter()
+    train = ImageNetLoader.load(paths["data_path"], label_map)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first, n_streamed = None, 0
+    for X, y in ImageNetLoader.stream_batches(paths["data_path"], label_map, batch_size=256):
+        first = (X, y) if first is None else first
+        n_streamed += len(X)
+    stream_s = time.perf_counter() - t0
+    for name, secs in (("load", load_s), ("stream_batches (batches of 256)", stream_s)):
+        print(f"decode, {name}: {n_train} images to 256x256 in {secs:.3f} s = {n_train / secs:.1f} images/s, "
+              f"{n_train / secs / cores:.1f} per host core ({cores} cores, {workers} decode threads)")
+    same = np.array_equal(first[0], train.data[:256]) and np.array_equal(first[1], train.labels[:256])
+    print(f"first streamed batch equal to load's first 256 images bit for bit: {same}")
+    if not same or n_streamed != n_train or train.data.shape != (n_train, 256, 256, 3):
+        raise AssertionError("stream_batches disagrees with load")
 
-        featurizer = Pipeline(eager["scored"].stages[:-1])
-        rates = {}
-        for name, batches in (
-            ("decoded images (host arrays, pinned staging)", lambda: BatchIterator.from_arrays(train.data, train.labels, 256)),
-            ("stream_batches (decode and featurize together)", lambda: ImageNetLoader.stream_batches(
-                paths["data_path"], label_map, batch_size=256)),
-        ):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with torch.inference_mode():
-                n = sum(len(F) for F, _ in featurizer.apply_batches(batches(), device="cuda"))
-            torch.cuda.synchronize()
-            rates[name] = n / (time.perf_counter() - t0)
-            print(f"featurizing {n} images in batches of 256 from {name}: {rates[name]:.1f} images/s (host clock; "
-                  "features left on the card)")
-        decode_rate = n_train / stream_s
-        card_rate = rates["decoded images (host arrays, pinned staging)"]
-        print(f"decode keeps up with the card: {decode_rate >= card_rate} (decode {decode_rate:.1f} images/s on "
-              f"{cores} cores against featurizing {card_rate:.1f} images/s; ratio {decode_rate / card_rate:.3f})")
-        del train, first
-
-        conf = pipe.ImageNetSiftLcsFVConfig(**paths, pca_dims=64, stream=True, stream_batch=256,
-                                            fit_sample_images=512)
-        scale = pipe.resolve_scale(conf)
-        if (scale.gmm_k, scale.num_iters, scale.feature_dim) != (256, 3, 65536):
-            raise AssertionError("real data does not resolve to the reference's 65,536 features and 3 epochs")
-        fitted = {}
-        real_fit = pipe.fit_streamed
-
-        def recording_fit(conf, fit_sample, train_batches, num_classes, device=None):
-            fitted.update(num_classes=num_classes, sample=np.shape(fit_sample))
-            fitted["scored"] = real_fit(conf, fit_sample, train_batches, num_classes, device)
-            return fitted["scored"]
-
+    featurizer = Pipeline(eager["scored"].stages[:-1])
+    rates = {}
+    for name, batches in (
+        ("decoded images (host arrays, pinned staging)", lambda: BatchIterator.from_arrays(train.data, train.labels, 256)),
+        ("stream_batches (decode and featurize together)", lambda: ImageNetLoader.stream_batches(
+            paths["data_path"], label_map, batch_size=256)),
+    ):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with patch.object(pipe, "fit_streamed", recording_fit):
-            fvo.LAUNCHES = 0  # the real-data path's run starts here
-            with StageTimer("cuda") as timer:
-                out = pipe.run(conf, device="cuda")
-            launches = fvo.LAUNCHES  # and ends here
-        secs = timer.seconds()
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            n = sum(len(F) for F, _ in featurizer.apply_batches(batches(), device="cuda"))
+        torch.cuda.synchronize()
+        rates[name] = n / (time.perf_counter() - t0)
+        print(f"featurizing {n} images in batches of 256 from {name}: {rates[name]:.1f} images/s (host clock; "
+              "features left on the card)")
+    decode_rate = n_train / stream_s
+    card_rate = rates["decoded images (host arrays, pinned staging)"]
+    print(f"decode keeps up with the card: {decode_rate >= card_rate} (decode {decode_rate:.1f} images/s on "
+          f"{cores} cores against featurizing {card_rate:.1f} images/s; ratio {decode_rate / card_rate:.3f})")
+    del train, first
+
+    conf = pipe.ImageNetSiftLcsFVConfig(**paths, pca_dims=64, stream=True, stream_batch=256,
+                                        fit_sample_images=512)
+    scale = pipe.resolve_scale(conf)
+    if (scale.gmm_k, scale.num_iters, scale.feature_dim) != (256, 3, 65536):
+        raise AssertionError("real data does not resolve to the reference's 65,536 features and 3 epochs")
+    fitted = {}
+    real_fit = pipe.fit_streamed
+
+    def recording_fit(conf, fit_sample, train_batches, num_classes, device=None):
+        fitted.update(num_classes=num_classes, sample=np.shape(fit_sample))
+        fitted["scored"] = real_fit(conf, fit_sample, train_batches, num_classes, device)
+        return fitted["scored"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with patch.object(pipe, "fit_streamed", recording_fit):
+        fvo.LAUNCHES = 0  # the real-data path's run starts here
+        with StageTimer("cuda") as timer:
+            out = pipe.run(conf, device="cuda")
+        launches = fvo.LAUNCHES  # and ends here
+    secs = timer.seconds()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     head = fitted["scored"].stages[-1]
     print(f"run_streamed on the JPEGs: {out['summary']}; feature dim {out['feature_dim']}, {fitted['num_classes']} "
           f"classes, featurizer sample {fitted['sample']}, head W {tuple(head.W.shape)}; {out['seconds']:.3f} s "
@@ -1598,7 +1638,7 @@ def fit_real(torch, eager) -> int:
         raise AssertionError(f"real-data run: sample {fitted['sample']}, {launches} launches (want {want})")
     if not all(np.isfinite([out["top_k_error"], out["top_1_error"]])):
         raise AssertionError("the real-data errors are not finite")
-    return launches
+    return launches, paths
 
 
 # The other image pipelines, at the reference's published widths and their
@@ -1760,7 +1800,7 @@ def voc_pipeline(torch, fvo, device="cuda", counts=VOC_COUNTS) -> dict:
     plain = voc.scores(scored, test.data[:n], device)
     within({"test scores through the plain Fisher vector (rel. to max)":
             (rel_to_max(torch, test_scores[:n], plain), SCORE_RTOL)}, f"voc, kernel against plain, {n} test images")
-    return {"launches": launches}
+    return {"launches": launches, "map": out["map"], "seconds": out["seconds"]}
 
 
 def ne_residual(torch, A, Y, W, lam: float) -> dict:
@@ -2254,6 +2294,415 @@ def speech_and_text(torch, fvo, device="cuda") -> int:
     return launches
 
 
+# The learning nodes, descriptors and native host library (the phase
+# "learning suite, descriptors, native"). Kernel ridge regression on
+# TIMIT's 440-dim frames (the speech phase's generator and seed), a cut of
+# its 200,000 training frames to 50,000 so that 200 CG iterations fit the
+# time limit (K would be 50,000² float32 = 9.3 GiB and is never formed),
+# and the first 10,000 test frames; 147 classes one-hot; gamma from the
+# median heuristic over KRR_GAMMA_ROWS rows (TIMIT's random-feature gamma on
+# these frames gives K ≈ I, which makes CG trivial); lam, max_iters and tol
+# the reference's defaults. The relative residual |(K + lam I)a - Y| / |Y|,
+# in float64 with K from torch.cdist (not the port's kernel code), must be
+# at most KRR_RESIDUAL_MAX for each solver (a few times the H100's 1.13e-2
+# after CG's 200 steps and 5.3e-5 after PCG's 97; 0 gives 1), and test
+# accuracy at least KRR_ACCURACY_MIN (1.0 there).
+KRR_COUNTS = (50000, 10000)
+KRR_SOLVE = dict(lam=1e-3, max_iters=200, tol=1e-5)
+KRR_LANDMARKS = 1024
+KRR_GAMMA_ROWS = 1000
+KRR_RESIDUAL_MAX = {"CG": 5e-2, "PCG": 1e-3}
+KRR_ACCURACY_MIN = 0.9
+# LeastSquaresEstimator on the smoke's shapes: (n, d, k) and the solver the
+# cost model must choose. 4,096 x 1,024 float32 is exactly 16 MiB, at the
+# local threshold (n·d·4 < 16 MiB), so it goes to the normal equations;
+# 4,000 rows stay local. MNIST's features come from its featurizer on
+# 60,000 synthetic digits; ImageNet's are the full-width training features
+# of the streamed phase.
+LS_SHAPES = (((4000, 1024, 10), "local"), ((4096, 1024, 10), "normal"))
+LS_LAM = 1e-3
+# LDA on TIMIT's 200,000 training frames, 147 classes, 146 directions; the
+# card against the CPU on the first LDA_CPU_ROWS frames, column by column
+# up to sign (eigh picks its signs per solver), relative to each column's
+# largest |value|. Only the best direction is held, within LDA_TOP_RTOL (7
+# times the H100's 1.4e-4): the later ones may rotate among near-equal
+# eigenvalues.
+LDA_CPU_ROWS = 20000
+LDA_TOP_RTOL = 1e-3
+# HOG (cells of 8, 9 bins) and DAISY (defaults) on the full-width phase's
+# 8,192 256x256 images in batches of 64; the card against the CPU port on
+# DESCRIPTOR_CPU_IMAGES of them within DESCRIPTOR_ATOL (unit-norm
+# descriptors, sums in another order).
+DESCRIPTOR_BATCH = 64
+DESCRIPTOR_CPU_IMAGES = 8
+DESCRIPTOR_ATOL = 1e-5
+# ``auto`` decode on the first DECODE_IMAGES training JPEGs of the real-data
+# phase.
+DECODE_IMAGES = 2000
+# Native SIFT against the device's on VOC's images: the reference's
+# descriptor tolerance (tests/test_descriptors.py:136-145). Native Fisher
+# vectors at VOC's shape, on the GMM the native EM fits to VOC's
+# descriptors (variances at the 1e-4 floor), against the CUDA kernel at
+# tests/test_native.py's tolerance (its native-against-jnp check); the
+# kernel against its plain version there at FV_RTOL, FV_ATOL.
+NATIVE_SIFT_TOL = 2e-4
+NATIVE_FV_RTOL, NATIVE_FV_ATOL = 1e-3, 1e-4
+VOC_GMM_SAMPLE = 100_000
+
+
+def krr_residual(torch, X, Y, alpha, gamma: float, lam: float, rows: int = 2048) -> float:
+    """|(K + lam I) alpha - Y| / |Y| in float64, K's rows made in chunks
+    from ``torch.cdist``, apart from the port's kernel code."""
+    X64, a64, Y64 = X.double(), alpha.double(), Y.double()
+    sq = 0.0
+    for s in range(0, len(X64), rows):
+        K = torch.exp(-gamma * torch.cdist(X64[s:s + rows], X64).square())
+        r = K @ a64 + lam * a64[s:s + rows] - Y64[s:s + rows]
+        sq += float((r * r).sum())
+    return (sq / float((Y64 * Y64).sum())) ** 0.5
+
+
+def kernel_ridge_full(torch, np, train, test, device) -> None:
+    from keystone_tpu_torch.config import config
+    from keystone_tpu_torch.nodes.learning import kernel_ridge as kr
+    from keystone_tpu_torch.nodes.learning.kernels import pairwise_sq_dists
+
+    n, n_test = KRR_COUNTS
+    C = int(train.labels.max()) + 1
+    X = torch.from_numpy(train.data[:n]).to(device)
+    X_test = torch.from_numpy(test.data[:n_test]).to(device)
+    Y = torch.nn.functional.one_hot(torch.from_numpy(train.labels[:n]).long(), C).float().to(device)
+    d = X.shape[1]
+    rows = np.sort(np.random.default_rng(0).choice(n, KRR_GAMMA_ROWS, replace=False))
+    S = X[torch.from_numpy(rows).to(device)]
+    sq = pairwise_sq_dists(S, S)
+    iu = torch.triu_indices(len(rows), len(rows), 1, device=device)
+    gamma = 1.0 / float(sq[iu[0], iu[1]].median())
+    print(f"kernel ridge: {n} training and {n_test} test TIMIT frames of {d}, {C} classes one-hot; gamma "
+          f"{gamma:.6e} (1 / median squared distance over {KRR_GAMMA_ROWS} rows); lam {KRR_SOLVE['lam']}, "
+          f"max_iters {KRR_SOLVE['max_iters']}, tol {KRR_SOLVE['tol']}")
+    chunk = kr._chunk_rows(n, config.kernel_block_bytes)
+    v = torch.randn(n, C, generator=torch.Generator().manual_seed(0)).to(device)
+    ms = cuda_ms(lambda: kr._kernel_matvec(X, gamma, KRR_SOLVE["lam"], v, chunk), 3, torch)
+    ops = 2.0 * n * n * d + 2.0 * n * n * C + n * n  # the distances' gemm, K @ v, the exponentials
+    moved = 4.0 * (n * d + 2 * n * C)
+    bound = max(ops / F32_PEAK_FLOPS, moved / HBM_BYTES_PER_S) * 1e3
+    print(f"kernel ridge matvec (K + lam I)v, n={n} d={d} k={C}: {ms:.3f} ms (CUDA events; {-(-n // chunk)} chunks "
+          f"of {chunk} rows, {chunk * n * 4 / 2**30:.3f} GiB a block); bound {bound:.3f} ms (operations: "
+          f"{ops / 1e12:.3f} TFLOP at float32's 67 TFLOP/s) = {bound / ms:.1%} of the measured time")
+    for name, landmarks in (("CG", None), ("PCG", KRR_LANDMARKS)):
+        est = kr.KernelRidgeRegression(gamma=gamma, precond_landmarks=landmarks, device=device, **KRR_SOLVE)
+        reset_peak(torch, device)
+        t0 = time.perf_counter()
+        model = est.fit(X, Y)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = peak_gib(torch, device)
+        resid = krr_residual(torch, X, Y, model.alpha, gamma, KRR_SOLVE["lam"])
+        with torch.inference_mode():
+            pred = model(X_test).argmax(dim=1).cpu().numpy()
+        acc = float((pred == test.labels[:n_test]).mean())
+        print(f"kernel ridge, {name}{f', {landmarks} landmarks' if landmarks else ''}: {est.last_cg_iters} "
+              f"iterations in {secs:.3f} s (host clock, synced), {secs / max(est.last_cg_iters, 1) * 1e3:.2f} ms an "
+              f"iteration; relative residual {resid:.3e} (float64, tol {KRR_RESIDUAL_MAX[name]}); test accuracy "
+              f"{acc:.4f} (min {KRR_ACCURACY_MIN}); peak device memory {peak:.3f} GiB")
+        if not (torch.isfinite(model.alpha).all() and resid <= KRR_RESIDUAL_MAX[name] and acc >= KRR_ACCURACY_MIN):
+            raise AssertionError(f"kernel ridge {name}: residual {resid}, accuracy {acc}")
+
+
+def ls_residual(torch, A, Y, W, lam: float) -> float:
+    """The centered ridge normal equations of W in float64, without forming
+    the gram: |Acᵀ(Ac W - Yc) + lam W| / |AcᵀYc|."""
+    A64, Y64, W64 = A.double(), Y.double(), W.double()
+    A64 -= A64.mean(dim=0)
+    Y64 -= Y64.mean(dim=0)
+    rhs = A64.T @ Y64
+    return float(torch.linalg.norm(A64.T @ (A64 @ W64 - Y64) + lam * W64) / torch.linalg.norm(rhs))
+
+
+def least_squares_full(torch, np, streamed, device) -> None:
+    from keystone_tpu_torch.loaders.mnist import MnistLoader
+    from keystone_tpu_torch.nodes.learning.block_least_squares import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.learning.least_squares import LeastSquaresEstimator
+    from keystone_tpu_torch.nodes.learning.linear_mapper import LinearMapEstimator
+    from keystone_tpu_torch.nodes.learning.local_least_squares import LocalLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines.images import mnist_random_fft as mnist
+
+    g = torch.Generator().manual_seed(1)
+    cases = []
+    for (n, d, k), want in LS_SHAPES:
+        A = torch.randn(n, d, generator=g)
+        Y = torch.nn.functional.one_hot((A @ torch.randn(d, k, generator=g)).argmax(1), k).float()
+        cases.append((f"random {n} x {d}", A.to(device), Y.to(device), want))
+    train, _ = MnistLoader.synthetic(n=MNIST_COUNTS[0])
+    conf = mnist.MnistRandomFFTConfig()
+    with torch.inference_mode():
+        featurizer = mnist.build_featurizer(conf, 784, device=device)
+        A = featurizer.apply_in_batches(train.data, batch_size=4096, device=device)
+        Y = ClassLabelIndicators(conf.num_classes)(torch.as_tensor(train.labels).to(device))
+    cases.append((f"MNIST features {A.shape[0]} x {A.shape[1]}", A, Y, "normal"))
+    A = torch.as_tensor(streamed["A"]).to(device)
+    Y = torch.as_tensor(streamed["targets"]).to(device)
+    cases.append((f"ImageNet features {A.shape[0]} x {A.shape[1]}", A, Y, "block"))
+    concrete = {
+        "local": lambda: LocalLeastSquaresEstimator(LS_LAM, device=device),
+        "normal": lambda: LinearMapEstimator(LS_LAM, device=device),
+        "block": lambda: BlockLeastSquaresEstimator(block_size=4096, num_iters=3, lam=LS_LAM, device=device),
+    }
+    for label, A, Y, want in cases:
+        est = LeastSquaresEstimator(lam=LS_LAM, device=device)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = est.fit(A, Y)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            direct = concrete[est.last_choice.name]().fit(A, Y)
+            same = torch.equal(model.W, direct.W) and torch.equal(model(A[:512]), direct(A[:512]))
+            resid = ls_residual(torch, A, Y, model.W, LS_LAM)
+        print(f"least squares, {label}, {Y.shape[1]} classes: chose {est.last_choice.name} "
+              f"({est.last_choice.reason}); {secs:.3f} s (host clock, synced); float64 normal-equations residual "
+              f"{resid:.3e}; equal to {type(direct).__name__} called directly: {same}")
+        if est.last_choice.name != want or not same:
+            raise AssertionError(f"least squares on {label}: chose {est.last_choice.name} (want {want}), same {same}")
+
+
+def lda_full(torch, np, train, device) -> None:
+    from keystone_tpu_torch.nodes.learning.lda import LinearDiscriminantAnalysis
+
+    C = int(train.labels.max()) + 1
+    X = torch.from_numpy(train.data).to(device)
+    y = torch.from_numpy(train.labels).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lda = LinearDiscriminantAnalysis(dims=C - 1, device=device).fit(X, y)
+    torch.cuda.synchronize()
+    print(f"lda: {X.shape[0]} x {X.shape[1]} frames, {C} classes, {C - 1} directions in "
+          f"{time.perf_counter() - t0:.3f} s on the card (host clock, synced)")
+    cut = train.data[:LDA_CPU_ROWS]
+    z = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        fitted = LinearDiscriminantAnalysis(dims=C - 1, device=dev).fit(cut, train.labels[:LDA_CPU_ROWS])
+        with torch.inference_mode():
+            z[dev] = fitted(torch.from_numpy(cut).to(dev)).double().cpu()
+        print(f"lda on {LDA_CPU_ROWS} frames, {dev}: {time.perf_counter() - t0:.3f} s (host clock)")
+    sign = torch.sign((z[device] * z["cpu"]).sum(dim=0))
+    err = ((z[device] * sign - z["cpu"]).abs().max(dim=0).values / z["cpu"].abs().max(dim=0).values).numpy()
+    print(f"lda, card against cpu up to sign, per direction relative to its largest |value|: best direction "
+          f"{err[0]:.3e} (tol {LDA_TOP_RTOL}), directions 1-8 max {err[:8].max():.3e}, median {np.median(err):.3e}, "
+          f"max {err.max():.3e}")
+    if not (torch.isfinite(z[device]).all() and err[0] <= LDA_TOP_RTOL):
+        raise AssertionError(f"lda: the best direction differs by {err[0]} between card and cpu")
+
+
+def descriptors_full(torch, np, images, device) -> None:
+    from keystone_tpu_torch.nodes.images.daisy import DaisyExtractor
+    from keystone_tpu_torch.nodes.images.hog import HogExtractor
+
+    n = len(images)
+    for node in (HogExtractor(cell_size=8, num_bins=9), DaisyExtractor()):
+        name = type(node).__name__
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        device_ms_sum, dims = 0.0, None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for i in range(0, n, DESCRIPTOR_BATCH):
+                X = torch.from_numpy(images[i:i + DESCRIPTOR_BATCH]).to(device)
+                start.record()
+                out = node(X)
+                end.record()
+                end.synchronize()
+                device_ms_sum += start.elapsed_time(end)
+                dims = tuple(out.shape[1:])
+        secs = time.perf_counter() - t0
+        batches = -(-n // DESCRIPTOR_BATCH)
+        cpu_in = torch.from_numpy(images[:DESCRIPTOR_CPU_IMAGES])
+        with torch.inference_mode():
+            err = float((node(cpu_in.to(device)).cpu() - node(cpu_in)).abs().max())
+        print(f"{name}: {n} images of {images.shape[1:]} in {secs:.3f} s = {n / secs:.1f} images/s (host clock, "
+              f"copies included); device {device_ms_sum / batches:.3f} ms a batch of {DESCRIPTOR_BATCH} (CUDA "
+              f"events); output {dims} an image; card against cpu on {DESCRIPTOR_CPU_IMAGES} images: max abs "
+              f"{err:.3e} (tol {DESCRIPTOR_ATOL})")
+        if not err <= DESCRIPTOR_ATOL:
+            raise AssertionError(f"{name} on the card disagrees with the cpu: {err}")
+
+
+def auto_decode(np, paths) -> None:
+    """``KEYSTONE_JPEG_BACKEND=auto`` on the real-data phase's JPEGs: the
+    decode pool where it is built, else PIL. No batch may go to the other
+    route, nor be handed to PIL after a native failure."""
+    import os
+
+    from keystone_tpu_torch import native
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+    from keystone_tpu_torch.utils.metrics import ingest_counters
+
+    label_map = ImageNetLoader.load_label_map(paths["label_map_path"])
+    before = ingest_counters.snapshot()
+    with patch.dict(os.environ, {"KEYSTONE_JPEG_BACKEND": "auto"}):
+        t0 = time.perf_counter()
+        ImageNetLoader.load(paths["data_path"], label_map, limit=DECODE_IMAGES)
+        secs = time.perf_counter() - t0
+    after = ingest_counters.snapshot()
+    nat, pil, handed = ((after.get(k, 0) - before.get(k, 0))
+                        for k in ("native_batches", "pil_batches", "pil_fallback_batches"))
+    built = native.jpeg_available()
+    why = "" if built else f" ({native.build_error() or 'jpeg_probe.cpp does not link with -ljpeg'})"
+    cores = os.cpu_count() or 1
+    print(f"decode, auto: {DECODE_IMAGES} JPEGs of {REAL_W}x{REAL_H} in {secs:.3f} s = {DECODE_IMAGES / secs:.1f} "
+          f"images/s, {DECODE_IMAGES / secs / cores:.1f} per host core ({cores} cores); decode pool built: "
+          f"{built}{why}; {nat} native and {pil} PIL batches, {handed} handed to PIL after a native failure")
+    used, other = (nat, pil) if built else (pil, nat)
+    if used < 1 or other != 0 or handed != 0:
+        raise AssertionError(f"auto decode: {nat} native, {pil} PIL, {handed} handed over (pool built: {built})")
+
+
+def native_host(torch, np, fvo, voc_xla, device) -> dict:
+    """Native SIFT, GMM EM and Fisher vectors against the device's, then
+    VOCSIFTFisher end to end with native SIFT. Returns that run's launches
+    and the kernel's largest difference from its plain version here."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from keystone_tpu_torch import native
+    from keystone_tpu_torch.loaders.voc import VOCLoader
+    from keystone_tpu_torch.nodes.images.external.fisher_vector import GMMFisherVectorEstimator
+    from keystone_tpu_torch.nodes.learning.pca import PCAEstimator
+    from keystone_tpu_torch.nodes.stats.samplers import sample_rows
+    from keystone_tpu_torch.ops.sift import dense_sift
+    from keystone_tpu_torch.pipelines.images import voc_sift_fisher as voc
+    from keystone_tpu_torch.utils.image import grayscale
+
+    with ThreadPoolExecutor(2) as pool:
+        train, test = pool.map(
+            lambda seed_n: VOCLoader.synthetic(n=seed_n[1], num_classes=VOC_CLASSES, size=VOC_SIZE,
+                                               seed=seed_n[0])[0],
+            ((0, VOC_COUNTS[0]), (1, VOC_COUNTS[1])))
+    gray = grayscale(torch.from_numpy(train.data))[..., 0].numpy()
+    t0 = time.perf_counter()
+    host = native.dense_sift(gray)
+    native_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        dense_sift(torch.from_numpy(gray[:64]).to(device))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = torch.cat([dense_sift(torch.from_numpy(gray[i:i + 64]).to(device)) for i in range(0, len(gray), 64)])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    err = float((on_card.cpu() - torch.from_numpy(host)).abs().max())
+    print(f"native sift: {len(gray)} VOC images of {VOC_SIZE}x{VOC_SIZE}, {host.shape[1]} descriptors each, "
+          f"{len(gray) / native_s:.1f} images/s on the host ({native_s:.3f} s) against {len(gray) / card_s:.1f} "
+          f"images/s on the card ({card_s:.3f} s, host copies included, batches of 64); max abs difference "
+          f"{err:.3e} (tol {NATIVE_SIFT_TOL})")
+    if not err <= NATIVE_SIFT_TOL:
+        raise AssertionError(f"native sift against the device's: {err}")
+
+    flat = sample_rows(host.reshape(-1, host.shape[-1]), VOC_GMM_SAMPLE, seed=0)
+    pca = PCAEstimator(dims=64, device=device).fit(flat)
+    with torch.inference_mode():
+        sample = pca(torch.from_numpy(flat).to(device))
+    gmms, secs = {}, {}
+    for backend in ("native", "tpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gmms[backend] = GMMFisherVectorEstimator(k=VOC_K, em_iters=20, sample_size=VOC_GMM_SAMPLE, seed=0,
+                                                 device=device, gmm_backend=backend).fit(sample)
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+
+    def loglik(g):
+        w, mu, var = (t.double() for t in (g.weights, g.means, g.variances))
+        x = sample.double()
+        quad = ((x[:, None, :] - mu) ** 2 / var).sum(-1)
+        logp = torch.log(w) - 0.5 * (torch.log(var).sum(-1) + x.shape[1] * np.log(2 * np.pi)) - 0.5 * quad
+        return float(torch.logsumexp(logp, dim=1).mean())
+
+    lls = {b: loglik(g) for b, g in gmms.items()}
+    mu_n, mu_t = gmms["native"].means.double(), gmms["tpu"].means.double()
+    nearest = torch.cdist(mu_n, mu_t).min(dim=1).values.max()
+    print(f"native gmm EM against the port's torch EM, k={VOC_K} on {len(sample)} PCA'd VOC descriptors of 64, 20 "
+          f"iterations: native {secs['native']:.3f} s (host), torch {secs['tpu']:.3f} s (card, synced); mean "
+          f"log-likelihood {lls['native']:.4f} against {lls['tpu']:.4f}; farthest native mean from its nearest torch "
+          f"mean {float(nearest):.4f} (mean norm {float(mu_t.norm(dim=1).mean()):.4f})")
+    if not all(np.isfinite(list(lls.values()))):
+        raise AssertionError("a fitted mixture's likelihood is not finite")
+
+    g = gmms["native"]
+    with torch.inference_mode():
+        descs = pca(on_card[:64]).contiguous()
+        ops = fvo.fv_operands(g.weights, g.means, g.variances)
+        got = fvo.fisher_vectors(descs, ops).cpu()
+        plain = fvo.fisher_vectors_plain(descs, g.weights, g.means, g.variances).cpu()
+        exact = fvo.fisher_vectors_plain(descs.double(), *(t.double() for t in (g.weights, g.means, g.variances)))
+    host_desc = descs.cpu().numpy()
+    w, mu, var = (t.cpu().numpy() for t in (g.weights, g.means, g.variances))
+    t0 = time.perf_counter()
+    host_fv = torch.from_numpy(np.stack([native.fisher_vector(x, w, mu, var) for x in host_desc]))
+    fv_s = time.perf_counter() - t0
+
+    def outside(a, b):
+        return int(((a - b).abs() > NATIVE_FV_ATOL + NATIVE_FV_RTOL * b.abs()).sum())
+
+    exact = exact.cpu()
+    print(f"native fisher vectors against the cuda kernel at VOC's shape (B=64, m={host.shape[1]}, d=64, "
+          f"k={VOC_K}), GMM by the native EM (smallest variance {float(var.min()):.3e}, "
+          f"{int((var <= 1e-4 * (1 + 1e-6)).sum())} of {var.size} at the floor): max abs difference "
+          f"{float((got - host_fv).abs().max()):.3e}, {outside(got, host_fv)} of {got.numel()} entries outside "
+          f"rtol {NATIVE_FV_RTOL}, atol {NATIVE_FV_ATOL}; native {fv_s * 1e3:.2f} ms on the host. Against the "
+          f"float64 plain version: native {float((host_fv - exact).abs().max()):.3e}, kernel "
+          f"{float((got - exact).abs().max()):.3e}, float32 plain {float((plain - exact).abs().max()):.3e}")
+    if outside(got, host_fv):
+        raise AssertionError("native fisher vectors disagree with the kernel")
+    fv_err = held_against_plain(torch, got, plain, "at VOC's shape on the native EM's mixture")
+
+    conf = voc.VOCSIFTFisherConfig(synthetic_classes=VOC_CLASSES, sift_backend="native")
+    reset_peak(torch, device)
+    fvo.LAUNCHES = 0  # the native-SIFT VOC path starts here
+    t0 = time.perf_counter()
+    scored = voc.fit(conf, train, device)
+    test_scores = voc.scores(scored, test.data, device)
+    launches = fvo.LAUNCHES  # and ends here
+    out = voc.evaluate(test_scores, test.labels, VOC_CLASSES, time.perf_counter() - t0)
+    print(f"voc_sift_fisher, native sift: {out['summary']} in {out['seconds']:.3f} s (host clock) against the xla "
+          f"run's mAP {voc_xla['map']:.4f} in {voc_xla['seconds']:.3f} s; {launches} fv launches; peak device memory "
+          f"{peak_gib(torch, device):.3f} GiB")
+    want = sum(-(-n // 64) for n in VOC_COUNTS)
+    if launches != want or not out["map"] >= VOC_MAP_MIN:
+        raise AssertionError(f"native-sift VOC: {launches} launches (want {want}), mAP {out['map']}")
+    return launches, fv_err
+
+
+def learning_suite(torch, np, fvo, images, jpeg_paths, streamed, voc_xla, device="cuda") -> dict:
+    """The phase "learning suite, descriptors, native". Returns the
+    Fisher-vector launches of each of its paths and the kernel's largest
+    difference from its plain version in the phase."""
+    from keystone_tpu_torch import build, native
+    from keystone_tpu_torch.loaders.timit import TimitFeaturesDataLoader
+
+    t_phase = time.perf_counter()
+    launches = {}
+    fvo.LAUNCHES = 0  # the learning nodes' and descriptors' paths start here
+    train, test = TimitFeaturesDataLoader.synthetic(n=TIMIT_COUNTS[0], num_phones=TimitFeaturesDataLoader.NUM_PHONES)
+    kernel_ridge_full(torch, np, train, test, device)
+    least_squares_full(torch, np, streamed, device)
+    lda_full(torch, np, train, device)
+    del train, test
+    descriptors_full(torch, np, images, device)
+    launches["learning nodes and descriptors"] = fvo.LAUNCHES  # and end here
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native library did not build: {native.build_error()}")
+    print(f"native library: built in {build.NATIVE_BUILD['seconds']:.3f} s (host, {time.perf_counter() - t0:.3f} s "
+          f"with the probe and loading), decode pool built: {native.jpeg_available()}")
+    auto_decode(np, jpeg_paths)
+    launches["voc, native sift"], fv_err = native_host(torch, np, fvo, voc_xla, device)
+    print(f"learning suite, descriptors, native: {time.perf_counter() - t_phase:.3f} s")
+    return launches, fv_err
+
+
 def main() -> int:
     # CUPTI stays attached between profiles, so that a graph captured after
     # one is traced kernel by kernel in the next (torch's profiler does the
@@ -2293,6 +2742,10 @@ def main() -> int:
         # Variances near the 1e-4 floor, as a fitted GMM reaches, with the
         # means a few standard deviations apart.
         check_fv(torch, fvo, 3, FULL["m"], d, k, seed=6, var_range=(1e-4, 1e-3), mu_scale=0.05),
+        # Variances at the floor and means of scale 0.5, fifty standard
+        # deviations from 0: where sums of r·x² lose the result in float32.
+        check_fv(torch, fvo, 2, FULL["m"], d, k, seed=8, var_range=(1e-4, 1e-4), mu_scale=0.5),
+        check_fitted_floor(torch, fvo),
     )
     check_repeat(torch, fvo)
     timings = {B: time_fv(torch, fvo, B, FULL["m"], d, k) for B in BUCKETS}
@@ -2327,26 +2780,36 @@ def main() -> int:
 
     phase("solver modes")
     solver_modes(torch, fitted, streamed, test)
+    images = train.data  # kept for the descriptors of the last phase
     del train
 
-    phase("fit, real data")
-    real_launches = fit_real(torch, fitted)
+    jpeg_root = tempfile.TemporaryDirectory(prefix="keystone-smoke-jpeg-")
+    try:
+        phase("fit, real data")
+        real_launches, jpeg_paths = fit_real(torch, fitted, jpeg_root.name)
 
-    phase("other pipelines")
-    voc = other_pipelines(torch, fvo)
-    # The kernel at VOCSIFTFisher's shape: 841 descriptors of a 128x128
-    # image, d = 64, k = 16, in the fit's and scorer's batches of 64 and
-    # for one image. The kernel pads components to 256, so it does the
-    # products of k = 256; the bound is that of k = 16.
-    voc_shape = {B: time_fv(torch, fvo, B, VOC_M, d, VOC_K) for B in (64, 1)}
-    for B, t in voc_shape.items():
-        padded = 3 * 8.0 * B * VOC_M * k * d / TF32_PEAK_FLOPS * 1e3
-        print(f"fv kernel at VOC's shape, B={B}: {t['ms']:.4f} ms on the device; bound at k={VOC_K} "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 bound of the padded k={k} work {padded:.4f} ms")
-    max_err = max(max_err, *(t["max_abs_err"] for t in voc_shape.values()))
+        phase("other pipelines")
+        voc = other_pipelines(torch, fvo)
+        # The kernel at VOCSIFTFisher's shape: 841 descriptors of a 128x128
+        # image, d = 64, k = 16, in the fit's and scorer's batches of 64 and
+        # for one image. The kernel pads components to 256, so it does the
+        # logits product of k = 256; the bound is that of k = 16.
+        voc_shape = {B: time_fv(torch, fvo, B, VOC_M, d, VOC_K) for B in (64, 1)}
+        for B, t in voc_shape.items():
+            padded = 3 * 4.0 * B * VOC_M * k * d / TF32_PEAK_FLOPS * 1e3
+            print(f"fv kernel at VOC's shape, B={B}: {t['ms']:.4f} ms on the device; bound at k={VOC_K} "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 bound of the padded k={k} work {padded:.4f} ms")
+        max_err = max(max_err, *(t["max_abs_err"] for t in voc_shape.values()))
 
-    phase("speech and text pipelines")
-    speech_text_launches = speech_and_text(torch, fvo)
+        phase("speech and text pipelines")
+        speech_text_launches = speech_and_text(torch, fvo)
+
+        phase("learning suite, descriptors, native")
+        print(gpu_name_and_limit())
+        suite_launches, suite_err = learning_suite(torch, np, fvo, images, jpeg_paths, streamed, voc)
+        max_err = max(max_err, suite_err)
+    finally:
+        jpeg_root.cleanup()
 
     phase("kernels")
     kernels = [{
@@ -2356,7 +2819,7 @@ def main() -> int:
         "replaces": "keystone_tpu/ops/fisher_vector_pallas.py:108",
         "launches": (served["launches"] + served["service_launches"] + fitted["launches"]
                      + fitted["served_launches"] + sum(streamed["launches"].values()) + real_launches
-                     + voc["launches"]),
+                     + voc["launches"] + sum(suite_launches.values())),
         "launches_by_path": {
             "serve, graphs": served["launches"],
             "service": served["service_launches"],
@@ -2367,6 +2830,7 @@ def main() -> int:
             "voc": voc["launches"],
             # No TPU kernel lies on these paths: the kernel must not run there.
             "speech and text pipelines": speech_text_launches,
+            **suite_launches,
         },
         "max_abs_err": max_err,
         "ms": timing["ms"],
@@ -2386,8 +2850,9 @@ def main() -> int:
         "bound_ms_voc_shape": {f"B={B} m={VOC_M} k={VOC_K}": t["bound_ms"] for B, t in voc_shape.items()},
     }]
     by_path = dict(kernels[0]["launches_by_path"])
-    if by_path.pop("speech and text pipelines") != 0:
-        raise AssertionError("fisher_vector was launched on the speech and text pipelines")
+    for path in ("speech and text pipelines", "learning nodes and descriptors"):
+        if by_path.pop(path) != 0:
+            raise AssertionError(f"fisher_vector was launched on the {path}")
     if min(by_path.values()) < 1:
         raise AssertionError("fisher_vector was not launched on every image path")
     print(json.dumps({"kernels": kernels}))

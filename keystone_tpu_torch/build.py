@@ -1,10 +1,18 @@
-"""Builds the port's CUDA kernels from ``csrc/`` at first use.
+"""Builds the port's CUDA kernels and its native host library at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``_build/`` and loaded
 with ``ctypes``. The library's file name carries a digest of its source and
 flags, so an edited source is rebuilt, never served stale. ``build()``
 starts one ``nvcc`` per source, all together, and waits for all of them.
+
+``native_library()`` builds the host library of ``csrc/native/`` (dense
+SIFT, GMM EM, Fisher vectors and the libjpeg decode pool) with ``g++`` and
+the flags of ``keystone_tpu/native/Makefile``: one compiler per source, all
+together, then one link. As the Makefile does, it adds ``jpeg_pool.cpp``
+and ``-ljpeg`` only where ``jpeg_probe.cpp`` links with ``-ljpeg`` (an
+answer kept in ``_build/`` for each host). The library is named by a digest
+of its sources, flags, that answer and the host's compiler and target.
 """
 
 from __future__ import annotations
@@ -78,6 +86,106 @@ def build(names=SOURCES) -> dict:
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+NATIVE_SRC = CSRC / "native"
+NATIVE_SOURCES = ("sift", "gmm_fv")
+NATIVE_JPEG_SOURCE = "jpeg_pool"
+NATIVE_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-fopenmp", "-Wall", "-Wextra")
+NATIVE_LDFLAGS = ("-shared", "-fopenmp")
+# What the last native build in this process did: wall seconds (0.0 when
+# the library was already built) and whether the decode pool is in it.
+NATIVE_BUILD: dict = {}
+
+
+def cxx() -> str:
+    """``g++`` on PATH. ``CXX`` is not read: a host may point it at a
+    compiler that cannot link OpenMP, which the library needs."""
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("no C++ compiler: put g++ on PATH")
+    return found
+
+
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def native_host(compiler: str) -> str:
+    """A digest of the compiler and of the target ``-march=native`` selects
+    on this host, as ``g++ -Q --help=target`` reports it: a library built
+    on one host is never loaded on a host whose processor differs."""
+    query = subprocess.run([compiler, "-march=native", "-Q", "--help=target"],
+                           capture_output=True, text=True)
+    if query.returncode != 0:
+        raise RuntimeError(f"{compiler} -march=native -Q --help=target failed (rc {query.returncode}):\n"
+                           f"{query.stdout}{query.stderr}")
+    return hashlib.sha256(f"{compiler}\n{query.stdout}".encode()).hexdigest()[:16]
+
+
+def native_has_jpeg(compiler: str, host: str) -> bool:
+    """Whether ``jpeg_probe.cpp`` compiles and links with ``-ljpeg`` here.
+    The answer is kept in ``_build/`` by host, so the probe runs once."""
+    marker = BUILD_DIR / f"native-jpeg-{host}.txt"
+    if marker.exists():
+        return marker.read_text().strip() == "1"
+    probe = _run([compiler, str(NATIVE_SRC / "jpeg_probe.cpp"), "-ljpeg", "-o", os.devnull])
+    probe.communicate()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = marker.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_text("1" if probe.returncode == 0 else "0")
+    os.replace(tmp, marker)
+    return probe.returncode == 0
+
+
+def native_library_path(sources, jpeg: bool, host: str) -> Path:
+    digest = hashlib.sha256()
+    for name in (*sources, "keystone_native.h"):
+        path = NATIVE_SRC / (name if name.endswith(".h") else f"{name}.cpp")
+        digest.update(path.read_bytes())
+    digest.update(" ".join((*NATIVE_CXXFLAGS, *NATIVE_LDFLAGS, str(jpeg), host)).encode())
+    return BUILD_DIR / f"libkeystone_native-{digest.hexdigest()[:16]}.so"
+
+
+def native_library() -> tuple:
+    """(path, has_jpeg) of the host library, built first if missing; raises
+    with the compiler's output if a build fails."""
+    compiler = cxx()
+    host = native_host(compiler)
+    jpeg = native_has_jpeg(compiler, host)
+    sources = (*NATIVE_SOURCES, NATIVE_JPEG_SOURCE) if jpeg else NATIVE_SOURCES
+    out = native_library_path(sources, jpeg, host)
+    if out.exists():
+        NATIVE_BUILD.update(seconds=0.0, jpeg=jpeg)
+        return out, jpeg
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tmp_dir = BUILD_DIR / f"native.{os.getpid()}.tmp"
+    tmp_dir.mkdir(exist_ok=True)
+    try:
+        objects = {name: tmp_dir / f"{name}.o" for name in sources}
+        procs = {
+            name: _run([compiler, *NATIVE_CXXFLAGS, "-c", str(NATIVE_SRC / f"{name}.cpp"), "-o", str(obj)])
+            for name, obj in objects.items()
+        }
+        failures = []
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{compiler} failed for {name}.cpp (rc {proc.returncode}):\n{log}")
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        tmp = tmp_dir / out.name
+        link = _run([compiler, *NATIVE_LDFLAGS, "-o", str(tmp), *map(str, objects.values()),
+                     *(["-ljpeg"] if jpeg else [])])
+        log, _ = link.communicate()
+        if link.returncode != 0:
+            raise RuntimeError(f"{compiler} failed to link {out.name} (rc {link.returncode}):\n{log}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    NATIVE_BUILD.update(seconds=time.perf_counter() - t0, jpeg=jpeg)
+    return out, jpeg
 
 
 def library(name: str) -> ctypes.CDLL:

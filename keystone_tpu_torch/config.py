@@ -27,7 +27,8 @@ The serving knobs are the reference's (``keystone_tpu/config.py:245-300``,
 imported: the bucket ladder, its top, the serving precision, the replica
 pool's width, the in-flight window, the pending-queue bound, the default
 deadline and the planner switch. ``text_sparse_threshold`` is the
-reference's (``:357``), a plain field. ``resolved_serve_buckets`` reads
+reference's (``:357``), a plain field; ``kernel_block_bytes`` is the port's
+own (the reference's kernel rows come a device's row shard at a time). ``resolved_serve_buckets`` reads
 ``KEYSTONE_SERVE_BUCKETS`` live, so an exported ladder pins the engine's
 even when exported after import. The fault-injection knobs of
 ``utils/reliability.py`` live here too (the reference's ``:360-389``).
@@ -193,6 +194,10 @@ class Config:
     # ``SparseBatch`` in place of a dense (n, vocab) array (the reference's
     # config.text_sparse_threshold).
     text_sparse_threshold: int = 16384
+    # Bytes of one kernel block in kernel ridge regression's operator: its
+    # (K + λI)v takes K's rows in chunks of at most this many float32
+    # bytes, so the n×n matrix is never formed (``kernel_ridge.py``).
+    kernel_block_bytes: int = 1 << 30
 
 
 config = Config()

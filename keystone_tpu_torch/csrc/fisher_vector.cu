@@ -1,4 +1,4 @@
-// Fused Fisher-vector encoding for Hopper (sm_90a), on the tensor cores.
+// Fused Fisher-vector encoding for Hopper (sm_90a).
 //
 // Replaces the TPU kernel keystone_tpu/ops/fisher_vector_pallas.py::_fv_kernel
 // (launched by _fv_pallas through pl.pallas_call). Per image b, over its m
@@ -7,39 +7,45 @@
 //   logit_ij = bias_j + x_i²·(-½ inv_j) + x_i·(mu/var)_j,
 //              bias_j = log w_j + log N-normaliser_j - ½ Σ mu²/var_j
 //   r_ij     = softmax_j(logit_ij)          (rows i >= m contribute nothing)
-//   rs_j = Σ_i r_ij,  [t1_j | t2_j] = Σ_i r_ij [x_i | x_i²]
-//   gmu_j  = (t1_j - rs_j mu_j) / sigma_j                     · 1/(m √w_j)
-//   gvar_j = ((t2_j - 2 mu_j t1_j + rs_j mu_j²) inv_j - rs_j) · 1/(m √(2 w_j))
+//   rs_j = Σ_i r_ij,  g1_j = Σ_i r_ij (x_i - mu_j),  c2_j = Σ_i r_ij (x_i - mu_j)²
+//   gmu_j  = g1_j / sigma_j                    · 1/(m √w_j)
+//   gvar_j = (c2_j inv_j - rs_j)               · 1/(m √(2 w_j))
 //
 // out[b] = [gmu | gvar], each k-major: (B, 2·k·d). The responsibilities r never
-// leave the SM, as on the TPU: they never even reach shared memory.
+// leave the SM, as on the TPU.
 //
-// What bounds it on the H100: operations. Per image the logits product
-// (m × 2d × k) and the accumulation product (k × m × 2d) are 8·m·k·d FLOP
-// (0.49 GFLOP at m=3721, k=256, d=64) on 0.95 MB of descriptors. On the CUDA
-// cores (67 TFLOP/s float32) that is 0.466 ms for a 64-image bucket. Here both
-// products run on the tensor cores in 3xTF32: every float32 operand v is split
-// into hi = tf32(v) and lo = tf32(v - hi), and a·b is hi·hi + hi·lo + lo·hi
-// with float32 accumulation, which keeps float32-level accuracy (plain TF32
-// keeps ~3 digits, and on a fitted GMM the terms of the quadratic form are
-// ~10³ while the logits are ~1). That is 3 × 8·m·k·d TF32 FLOP at the
-// published 495 TFLOP/s: 0.189 ms for a 64-image bucket. The bytes are never
-// the limit (61 MB of descriptors at B=64 take 0.018 ms at 3.35 TB/s).
+// The statistics are summed in centred form. The TPU kernel sums rᵀx and rᵀx²
+// and forms t2 - 2 mu t1 + rs mu²: on a GMM fitted to real descriptors, with
+// variances at the 1e-4 floor and |mu| near 1, those terms are 10⁴ times the
+// result, and float32 loses it. Here x - mu is formed first, as the native
+// encoder does.
+//
+// What bounds it on the H100: operations. The logits product (m × 2d × k) is
+// 4·m·k·d FLOP an image, on the tensor cores in 3xTF32: every float32 operand
+// v is split into hi = tf32(v) and lo = tf32(v - hi), and a·b is hi·hi +
+// hi·lo + lo·hi with float32 accumulation, which keeps float32-level accuracy
+// (plain TF32 keeps ~3 digits, and on a fitted GMM the terms of the quadratic
+// form are ~10³ while the logits are ~1): 3 × 4·m·k·d TF32 FLOP at the
+// published 495 TFLOP/s. The centred statistics are 5·m·k·d float32 FLOP on
+// the CUDA cores (a difference, a product, a sum and a fused multiply-add for
+// each of the m·k·d terms) at 67 TFLOP/s: 0.291 ms for a 64-image bucket at
+// m = 3721, k = 256, d = 64, three times the logits' 0.095 ms. The bytes are
+// never the limit (61 MB of descriptors at B = 64 take 0.018 ms at 3.35 TB/s).
 //
 // The design:
 // - One block of 4 warpgroups (16 warps) per SM. Warpgroup w owns components
-//   [64w, 64w + 64), the M side of both products, as wgmma.m64nNk8 (tf32,
-//   float32 accumulators) with A from registers and B from shared memory.
+//   [64w, 64w + 64), the M side of the logits product, as wgmma.m64n32k8
+//   (tf32, float32 accumulators) with A from registers and B from shared
+//   memory.
 // - Descriptor tiles of 32 rows stream through a ring of 3 stages in shared
 //   memory filled by cp.async (16 bytes a thread, zero-filled past the range),
-//   so the next two tiles load while this one is multiplied. Once a tile has
+//   so the next two tiles load while this one is used. Once a tile has
 //   landed, the block splits it once into TF32 hi/lo pairs of x and x² and
-//   writes them as the B operands of both products, K-major in 8 × 16-byte
-//   core matrices (no swizzle): [x² | x] with K = the 2d features and N = the
-//   32 rows for product 1; [x | x²] with K = the rows and N = the 2d features
-//   for product 2. Tile rows are padded to d + 4 floats, which keeps the
-//   split's loads free of bank conflicts.
-// - Product 1, transposed: logitsᵀ (64 comps × 32 rows) = W'ᵀ · [x² | x]ᵀ,
+//   writes them as the B operand of the product, K-major in 8 × 16-byte core
+//   matrices (no swizzle): [x² | x] with K = the 2d features and N = the 32
+//   rows. Tile rows are padded to d + 4 floats, which keeps the split's loads
+//   free of bank conflicts.
+// - The product, transposed: logitsᵀ (64 comps × 32 rows) = W'ᵀ · [x² | x]ᵀ,
 //   depth 2d, W' = [-½ inv ; -½ m2] (the wrapper's (d, k) constants). W' sits
 //   in shared memory once per block as float32 in A-fragment order (one
 //   16-byte load per fragment, no bank conflicts), 128 KB at d=64, and is
@@ -50,23 +56,19 @@
 //   exchange (max, sum) per row through 4 KB of shared memory, and each row
 //   gets one scale exp(max_w - max)/sum. Padding components (k up to 256)
 //   have logit -inf and r = 0; rows past the block's range get r = 0.
-// - Product 2, [t1 | t2] (64 comps × 2d) += rᵀ · [x | x²]: the accumulators of
-//   product 1 are the A fragments of product 2 as they stand, with the MMA's
-//   k index t read as row 2t and t + 4 as row 2t + 1 (product 2's B holds
-//   each 8-row k-step in the order 0, 2, 4, 6, 1, 3, 5, 7), so r goes from
-//   one product to the next in registers. The (64 × 2d) sums stay in
-//   registers across the block's whole row range: 64 of the 128 registers a
-//   thread can have at 512 threads.
-// - The splits fill most issue slots beside the products, so hi is rounded
-//   to TF32 in two integer operations and lo is cut in one.
-// - Shared memory at d=64: W' 128 KB, the two split tiles 2 × 32 KB, the ring
-//   3 × 8.5 KB, the softmax exchange 6 KB: 223.5 KB of the 227 KB a block may
-//   have.
+// - r goes to shared memory, (32 rows × 256 comps), and thread (comp, half)
+//   sums rs, g1 and c2 of its component over the tile's rows for the d/2
+//   features of its half: 2 × d/2 float32 sums in registers across the
+//   block's whole row range, 64 of the 128 registers a thread can have at
+//   512 threads. Threads of padding components skip the sums.
+// - Shared memory at d=64: W' 128 KB, the split tile 32 KB, r 32.5 KB, the
+//   ring 3 × 8.5 KB, the softmax exchange 6 KB: 224 KB of the 227 KB a block
+//   may have.
 // - Split plan (ops/fisher_vector.py::split_plan): each image's m axis is cut
 //   into S splits of whole tiles, at least 2 tiles (64 rows) each, with S
 //   chosen so that the B·S blocks make as few, as full waves as they can:
 //   S = 59 at B=1, 30 at B=4, 8 at B=16, 2 at B=64 on 132 SMs. Block (s, b)
-//   writes its split's rs, t1, t2 to a (B, S, ...) scratch, and a second
+//   writes its split's rs, g1, c2 to a (B, S, ...) scratch, and a second
 //   kernel sums the S partials of each image in a fixed order (no atomics:
 //   the same bits from run to run) and applies the scalings.
 //
@@ -84,13 +86,15 @@ constexpr int kK = 256;                  // components, padded; k <= 256
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;    // 512
 constexpr int kTileM = 32;               // descriptor rows per tile
-constexpr int kRowTiles = kTileM / 8;    // 8-row k-steps of product 2 in a tile
+constexpr int kRowTiles = kTileM / 8;    // 8-row groups of a tile in product 1's accumulators
 constexpr int kStages = 3;               // depth of the cp.async ring
 constexpr int kChunk = 2;                // product 1's k-steps per wgmma group
+constexpr int kRStride = kK + 4;         // padded row of the responsibilities in shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kK == 16 * kWarps, "each warp owns 16 components, each warpgroup 64");
 static_assert(kTileM * kWarps == kThreads, "the softmax exchange maps one thread to (row, warp)");
+static_assert(2 * kK == kThreads, "the statistics map one thread to (component, half of the features)");
 
 // Round to TF32 (10 mantissa bits), to nearest with ties away from zero: what
 // cvt.rna.tf32.f32 does for finite v, in two integer operations (on sm_90a
@@ -125,20 +129,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 8][4], const uint32_t 
                                            uint64_t desc);
 
 template <>
-__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[2][4], const uint32_t (&a)[4],
-                                                 uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <>
 __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[4][4], const uint32_t (&a)[4],
                                                  uint64_t desc) {
   asm volatile(
@@ -152,58 +142,6 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[4][4], const uint32_t 
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[8][4], const uint32_t (&a)[4],
-                                                 uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[16][4], const uint32_t (&a)[4],
-                                                 uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -251,10 +189,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // W' fragments, the two split tiles (hi and lo each), the tile ring, the
-  // (max, sum) exchange and the row scales.
-  return sizeof(float) *
-         ((size_t)kK * 2 * D + 8 * D * kTileM + kStages * kTileM * (D + 4) + 3 * kTileM * kWarps);
+  // W' fragments, product 1's split tile (hi and lo), the tile's
+  // responsibilities, the tile ring, the (max, sum) exchange and the row
+  // scales.
+  return sizeof(float) * ((size_t)kK * 2 * D + 4 * D * kTileM + (size_t)kTileM * kRStride +
+                          kStages * kTileM * (D + 4) + 3 * kTileM * kWarps);
 }
 
 template <int D>
@@ -263,19 +202,21 @@ fv_partial_kernel(const float* __restrict__ X,      // (B, m, D)
                   const float* __restrict__ inv_t,  // (D, k)  1/var, transposed
                   const float* __restrict__ m2_t,   // (D, k)  -2 mu/var, transposed
                   const float* __restrict__ bias,   // (k)     logw_norm - 0.5 Σ mu²/var
-                  float* __restrict__ part,         // (B, S, 2, k, D)  t1, t2
+                  const float* __restrict__ mu,     // (k, D)
+                  float* __restrict__ part,         // (B, S, 2, k, D)  g1, c2
                   float* __restrict__ part_rs,      // (B, S, k)
                   int m, int k, int S, int rows_per_split) {
   constexpr int kGroups = D / 8;      // 8-feature groups: k-steps of each half of product 1
   constexpr int kSteps = 2 * kGroups; // k-steps of product 1 (depth 2D)
   constexpr int kStride = D + 4;      // padded row of a descriptor tile
+  constexpr int kHalf = D / 2;        // features of one thread's statistics
+  constexpr int kPass = kHalf < 16 ? kHalf : 16;  // of them per pass over the tile
   extern __shared__ __align__(128) float smem[];
   float4* s_w = reinterpret_cast<float4*>(smem);  // [warp][step][lane] A fragments
   float* s_p1h = smem + (size_t)kK * 2 * D;       // product 1's B, hi and lo,
   float* s_p1l = s_p1h + 2 * D * kTileM;          //   in core matrices [row / 8][K / 4]
-  float* s_p2h = s_p1l + 2 * D * kTileM;          // product 2's B, hi and lo,
-  float* s_p2l = s_p2h + 2 * D * kTileM;          //   in core matrices [feature / 8][row / 4]
-  float* s_x = s_p2l + 2 * D * kTileM;            // [stage][kTileM][kStride]
+  float* s_r = s_p1l + 2 * D * kTileM;            // [row][kRStride] responsibilities
+  float* s_x = s_r + kTileM * kRStride;           // [stage][kTileM][kStride]
   float2* s_red = reinterpret_cast<float2*>(s_x + kStages * kTileM * kStride);  // [row][warp]
   float* s_scale = reinterpret_cast<float*>(s_red + kTileM * kWarps);           // [row][warp]
 
@@ -319,13 +260,18 @@ fv_partial_kernel(const float* __restrict__ X,      // (B, m, D)
     s_w[n] = make_float4(w_elem(comp, f), w_elem(comp + 8, f), w_elem(comp, f + 4),
                          w_elem(comp + 8, f + 4));
   }
-  const int c_lo = 16 * warp + g, c_hi = c_lo + 8;  // this thread's two components
+  const int c_lo = 16 * warp + g, c_hi = c_lo + 8;  // this thread's two components in product 1
   const float bias_lo = c_lo < k ? bias[c_lo] : -INFINITY;
   const float bias_hi = c_hi < k ? bias[c_hi] : -INFINITY;
   const float4* w_frag = s_w + warp * kSteps * 32 + lane;
 
-  float acc2[2 * kGroups][4] = {};  // [t1 | t2]: comps (c_lo, c_hi) × features (2t, 2t + 1)
-  float rs_lo = 0.f, rs_hi = 0.f;
+  // The statistics: thread (comp, half) sums, for its component and the
+  // kHalf features of its half, g1 = Σ r (x - mu) and c2 = Σ r (x - mu)²,
+  // and rs = Σ r. Warp w keeps the components w owns in product 1.
+  const int comp = tid >> 1, f0 = (tid & 1) * kHalf;
+  const float* mu_c = mu + (size_t)comp * D + f0;
+  float g1[kHalf] = {}, c2[kHalf] = {};
+  float rs = 0.f;
 
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<kStages - 2>();  // tile i has landed (for this thread's copies)
@@ -334,16 +280,10 @@ fv_partial_kernel(const float* __restrict__ X,      // (B, m, D)
     const float* xs = s_x + (i % kStages) * kTileM * kStride;
     const int base = row0 + i * kTileM;
 
-    // Split tile i once into TF32 hi/lo of x and x², written as the B
-    // operands of both products, K-major in 8-row × 16-byte core matrices:
-    // - product 1, [x² | x] (K = 2D features, N = rows): element (row rho,
-    //   K) at core matrix (rho / 8, K / 4), its row rho % 8, column K % 4;
-    // - product 2, [x | x²] (K = rows, N = 2D features): element (feature n,
-    //   row rho) at core matrix (n / 8, 2 (rho / 8) + (rho & 1)), its row
-    //   n % 8, column (rho % 8) / 2, so that each 8-row k-step holds its rows
-    //   in the order 0, 2, 4, 6, 1, 3, 5, 7 of product 2's A fragments.
-    // A warp's 32 lanes take 8 features × 4 rows: one core matrix of product
-    // 2, stored without bank conflicts.
+    // Split tile i once into TF32 hi/lo of x and x², written as product 1's
+    // B, [x² | x] (K = 2D features, N = rows), K-major in 8-row × 16-byte
+    // core matrices: element (row rho, K) at core matrix (rho / 8, K / 4),
+    // its row rho % 8, column K % 4.
     for (int e = tid; e < kTileM * D; e += kThreads) {
       const int f_lo = e & 7, kq = (e >> 3) & 3, rest = e >> 5;
       const int fb = rest % kGroups, par = (rest / kGroups) & 1, st = rest / (2 * kGroups);
@@ -358,13 +298,6 @@ fv_partial_kernel(const float* __restrict__ X,      // (B, m, D)
       s_p1l[q1] = __uint_as_float(l2);
       s_p1h[q2] = __uint_as_float(h);
       s_p1l[q2] = __uint_as_float(l);
-      const int cm = 2 * st + par;
-      const int o1 = (fb * 8 + cm) * 32 + f_lo * 4 + kq;  // feature f
-      const int o2 = o1 + kGroups * 8 * 32;                // feature D + f
-      s_p2h[o1] = __uint_as_float(h);
-      s_p2l[o1] = __uint_as_float(l);
-      s_p2h[o2] = __uint_as_float(h2);
-      s_p2l[o2] = __uint_as_float(l2);
     }
     fence_proxy_async();
 
@@ -443,64 +376,71 @@ fv_partial_kernel(const float* __restrict__ X,      // (B, m, D)
     }
     __syncthreads();
 
-    // Step 3, and product 2: r = exponential · scale; rs += Σ_rows r;
-    // [t1 | t2] += rᵀ [x | x²], k-step j = rows 8j..8j+7 with the MMA's k
-    // index t as row 2t and t + 4 as row 2t + 1.
-    uint32_t r_hi[kRowTiles][4], r_lo[kRowTiles][4];
+    // Step 3: r = exponential · scale, to shared memory as [row][comp]. The
+    // row stride kRStride = kK + 4 puts a warp's 32 stores in 32 banks.
 #pragma unroll
     for (int j = 0; j < kRowTiles; ++j) {
-      const float sc0 = s_scale[(8 * j + 2 * t) * kWarps + warp];
-      const float sc1 = s_scale[(8 * j + 2 * t + 1) * kWarps + warp];
-      float* c = acc1[j];
-      c[0] *= sc0;  // (c_lo, row 2t)
-      c[1] *= sc1;  // (c_lo, row 2t + 1)
-      c[2] *= sc0;  // (c_hi, row 2t)
-      c[3] *= sc1;  // (c_hi, row 2t + 1)
-      rs_lo += c[0] + c[1];
-      rs_hi += c[2] + c[3];
-      split4(make_float4(c[0], c[2], c[1], c[3]), r_hi[j], r_lo[j]);
+      const int row = 8 * j + 2 * t;
+      const float sc0 = s_scale[row * kWarps + warp];
+      const float sc1 = s_scale[(row + 1) * kWarps + warp];
+      const float* c = acc1[j];
+      s_r[row * kRStride + c_lo] = c[0] * sc0;
+      s_r[(row + 1) * kRStride + c_lo] = c[1] * sc1;
+      s_r[row * kRStride + c_hi] = c[2] * sc0;
+      s_r[(row + 1) * kRStride + c_hi] = c[3] * sc1;
     }
-    // B = [x | x²]: k-step j starts at core matrix 2j, 8-feature groups
-    // 8 · 128 bytes apart.
-    wgmma_fence();
+    __syncthreads();
+
+    // The centred statistics of the tile, on the CUDA cores in float32:
+    // the differences x - mu are formed before any product, so no large
+    // terms cancel, however small the variances. kPass features a pass
+    // keep their means in registers; the tile's r and x are read from
+    // shared memory (a warp reads 16 consecutive r, and x at two addresses).
+    if (comp < k) {
 #pragma unroll
-    for (int j = 0; j < kRowTiles; ++j) {
-      const uint64_t dh = smem_desc(s_p2h + 2 * j * 32, 128, 1024);
-      const uint64_t dl = smem_desc(s_p2l + 2 * j * 32, 128, 1024);
-      wgmma_tf32<2 * D>(acc2, r_lo[j], dh);
-      wgmma_tf32<2 * D>(acc2, r_hi[j], dl);
-      wgmma_tf32<2 * D>(acc2, r_hi[j], dh);
+      for (int p = 0; p < kHalf; p += kPass) {
+        float mu_p[kPass];
+#pragma unroll
+        for (int q = 0; q < kPass; q += 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(mu_c + p + q));
+          mu_p[q] = v.x;
+          mu_p[q + 1] = v.y;
+          mu_p[q + 2] = v.z;
+          mu_p[q + 3] = v.w;
+        }
+#pragma unroll 1
+        for (int row = 0; row < kTileM; ++row) {
+          const float r = s_r[row * kRStride + comp];
+          if (p == 0) rs += r;
+          const float* xr = xs + row * kStride + f0 + p;
+#pragma unroll
+          for (int q = 0; q < kPass; q += 4) {
+            const float4 x4 = *reinterpret_cast<const float4*>(xr + q);
+            const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float dx = xv[u] - mu_p[q + u];
+              const float rd = r * dx;
+              g1[p + q + u] += rd;
+              c2[p + q + u] = fmaf(rd, dx, c2[p + q + u]);
+            }
+          }
+        }
+      }
     }
-    wgmma_commit();
-    wgmma_wait_all();
   }
   cp_async_wait<0>();
 
-  // The split's partials: rs over the four lanes that share a component,
-  // t1 and t2 as (c, 8q + 2t .. 2t + 1) pairs.
-  rs_lo += __shfl_xor_sync(kFull, rs_lo, 1);
-  rs_lo += __shfl_xor_sync(kFull, rs_lo, 2);
-  rs_hi += __shfl_xor_sync(kFull, rs_hi, 1);
-  rs_hi += __shfl_xor_sync(kFull, rs_hi, 2);
-  const size_t slot = (size_t)b * S + s;
-  if (t == 0) {
-    if (c_lo < k) part_rs[slot * k + c_lo] = rs_lo;
-    if (c_hi < k) part_rs[slot * k + c_hi] = rs_hi;
-  }
-  float* p1 = part + slot * 2 * k * D;
-  float* p2 = p1 + (size_t)k * D;
+  // The split's partials.
+  if (comp < k) {
+    const size_t slot = (size_t)b * S + s;
+    if (f0 == 0) part_rs[slot * k + comp] = rs;
+    float* p1 = part + (slot * 2 * k + comp) * D + f0;
+    float* p2 = p1 + (size_t)k * D;
 #pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    const int col = 8 * q + 2 * t;
-    if (c_lo < k) {
-      *reinterpret_cast<float2*>(p1 + c_lo * D + col) = make_float2(acc2[q][0], acc2[q][1]);
-      *reinterpret_cast<float2*>(p2 + c_lo * D + col) =
-          make_float2(acc2[kGroups + q][0], acc2[kGroups + q][1]);
-    }
-    if (c_hi < k) {
-      *reinterpret_cast<float2*>(p1 + c_hi * D + col) = make_float2(acc2[q][2], acc2[q][3]);
-      *reinterpret_cast<float2*>(p2 + c_hi * D + col) =
-          make_float2(acc2[kGroups + q][2], acc2[kGroups + q][3]);
+    for (int q = 0; q < kHalf; q += 4) {
+      *reinterpret_cast<float4*>(p1 + q) = make_float4(g1[q], g1[q + 1], g1[q + 2], g1[q + 3]);
+      *reinterpret_cast<float4*>(p2 + q) = make_float4(c2[q], c2[q + 1], c2[q + 2], c2[q + 3]);
     }
   }
 }
@@ -515,7 +455,6 @@ template <int D>
 __global__ void __launch_bounds__(D * kReduceWays)
 fv_reduce_kernel(const float* __restrict__ part,     // (B, S, 2, k, D)
                  const float* __restrict__ part_rs,  // (B, S, k)
-                 const float* __restrict__ mu,       // (k, D)
                  const float* __restrict__ sigma,    // (k, D)
                  const float* __restrict__ inv,      // (k, D)
                  const float* __restrict__ w,        // (k) floored weights
@@ -544,9 +483,8 @@ fv_reduce_kernel(const float* __restrict__ part,     // (B, S, 2, k, D)
     s2 += sums[1][q][c];
     rs += sums[2][q][c];
   }
-  const float mj = mu[j * D + c];
-  const float gmu = (s1 - rs * mj) / sigma[j * D + c];
-  const float gvar = (s2 - 2.f * mj * s1 + rs * (mj * mj)) * inv[j * D + c] - rs;
+  const float gmu = s1 / sigma[j * D + c];
+  const float gvar = s2 * inv[j * D + c] - rs;
   const float wj = w[j];
   const float cm = 1.f / ((float)m * sqrtf(wj));
   const float cv = 1.f / ((float)m * sqrtf(2.f * wj));
@@ -565,11 +503,11 @@ int launch(const float* X, const float* inv_t, const float* m2_t, const float* b
       fv_partial_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   fv_partial_kernel<D><<<dim3(S, B), kThreads, smem, stream>>>(
-      X, inv_t, m2_t, bias, part, part_rs, m, k, S, rows_per_split);
+      X, inv_t, m2_t, bias, mu, part, part_rs, m, k, S, rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fv_reduce_kernel<D><<<dim3(k, B), dim3(D, kReduceWays), 0, stream>>>(
-      part, part_rs, mu, sigma, inv, w, out, m, k, S);
+      part, part_rs, sigma, inv, w, out, m, k, S);
   return (int)cudaGetLastError();
 }
 

@@ -22,9 +22,15 @@ Counterpart of ``keystone_tpu/loaders/imagenet.py``:
 Decoding is the reference's ``_decode`` (``:27-32``) exactly: RGB, resized
 to ``size`` × ``size`` with PIL's default filter, divided by 255 in
 float32, one image per task of a pool of ``decode_pool_workers`` threads.
-``KEYSTONE_JPEG_BACKEND`` is read at each batch: ``pil`` and ``auto`` (the
-default) decode with PIL. ``native``, the reference's libjpeg pool, is not
-ported and raises, as does any other value; nothing falls back.
+``KEYSTONE_JPEG_BACKEND`` is read at each batch, with the reference's
+meaning (``:35-55``): ``pil`` decodes with PIL; ``native`` in the port's
+libjpeg pool (``native.decode_jpeg_batch``: DCT-scaled decode and a
+bilinear resize, so other pixels than PIL's), or raises where the pool is
+not built; ``auto`` (the default) in the pool where it is built, else with
+PIL. ``auto`` hands a batch to PIL only when the pool fails on one of its
+images (libjpeg does not convert CMYK, for one), and counts each such batch
+in ``utils/metrics.py::ingest_counters`` (``pil_fallback_batches``). Any
+other value raises.
 
 ``stream_batches`` runs its producer on a ``loaders/stream.py``
 ``PrefetchIterator``: a decode error is raised again at the consumer, and
@@ -42,8 +48,10 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from keystone_tpu_torch import native
 from keystone_tpu_torch.loaders.labeled_data import LabeledData, decode_pool_workers
 from keystone_tpu_torch.loaders.stream import PrefetchIterator
+from keystone_tpu_torch.utils.metrics import ingest_counters
 
 __all__ = ["ImageNetLoader", "LabeledData"]
 
@@ -59,13 +67,25 @@ def _decode(buf: bytes, size: int) -> np.ndarray:
 def _decode_batch(bufs, size: int, pool) -> np.ndarray:
     """(n, size, size, 3) float32 images of the JPEG buffers ``bufs``."""
     backend = os.environ.get("KEYSTONE_JPEG_BACKEND", "auto")
-    if backend == "native":
-        raise RuntimeError(
-            "KEYSTONE_JPEG_BACKEND=native: the native libjpeg decode pool is not "
-            "ported; use pil or auto"
-        )
-    if backend not in ("auto", "pil"):
+    if backend not in ("auto", "pil", "native"):
         raise ValueError(f"KEYSTONE_JPEG_BACKEND={backend!r}: expected auto, pil or native")
+    if backend != "pil":
+        if native.jpeg_available():
+            try:
+                images = native.decode_jpeg_batch(list(bufs), size)
+            except ValueError:
+                if backend == "native":
+                    raise
+                ingest_counters.bump("pil_fallback_batches")
+            else:
+                ingest_counters.bump("native_batches")
+                return images
+        elif backend == "native":
+            raise RuntimeError(
+                "KEYSTONE_JPEG_BACKEND=native: the native jpeg pool is unavailable: "
+                f"{native.build_error() or 'the library was built without libjpeg'}"
+            )
+    ingest_counters.bump("pil_batches")
     return np.stack(list(pool.map(lambda b: _decode(b, size), bufs)))
 
 

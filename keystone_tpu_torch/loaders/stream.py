@@ -2,7 +2,7 @@
 
 Counterpart of ``keystone_tpu/loaders/stream.py``: ``PrefetchIterator``
 (``:61-354``), ``prefetch_batches`` (``:357``), ``prefetched`` (``:372``)
-and ``BatchIterator`` (``:385-464``). A producer thread pulls the upstream
+and ``BatchIterator`` (``:385-464``, ``from_csv`` included). A producer thread pulls the upstream
 iterator into a queue ``depth`` items deep while the consumer works on
 what it already has, so host work (reading, decoding, preparing a block)
 overlaps the device's.
@@ -10,8 +10,7 @@ overlaps the device's.
 The depth is an argument, ``PREFETCH_DEPTH`` (the reference's
 ``config.prefetch_depth``) unless given; there is no environment variable
 and no resource plan. The reference's retries, quarantine of corrupt
-records, producer restart, tracer spans and gauges, and ``from_csv`` are
-not ported.
+records, producer restart, tracer spans and gauges are not ported.
 """
 
 from __future__ import annotations
@@ -204,6 +203,37 @@ class BatchIterator:
             for s in range(0, X.shape[0], batch_rows):
                 e = min(s + batch_rows, X.shape[0])
                 yield X[s:e], None if y_arr is None else y_arr[s:e]
+
+        return BatchIterator(gen)
+
+    @staticmethod
+    def from_csv(path: str, label_col: Optional[int] = 0, batch_rows: int = 4096,
+                 label_dtype=np.int32) -> "BatchIterator":
+        """A CSV in batches of ``batch_rows`` rows, read as it streams (the
+        reference's ``:407-446``): float32 features, and the ``label_col``
+        column as ``label_dtype`` labels (None: no labels). Pass a float
+        dtype for regression targets, which int32 would truncate."""
+
+        def emit(rows, labels):
+            X = np.asarray(rows, dtype=np.float32)
+            return X, None if label_col is None else np.asarray(labels, dtype=label_dtype)
+
+        def gen():
+            rows, labels = [], []
+            with open(path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    vals = [float(v) for v in line.split(",")]
+                    if label_col is not None:
+                        labels.append(vals.pop(label_col))
+                    rows.append(vals)
+                    if len(rows) == batch_rows:
+                        yield emit(rows, labels)
+                        rows, labels = [], []
+            if rows:
+                yield emit(rows, labels)
 
         return BatchIterator(gen)
 

@@ -3,7 +3,11 @@
 Counterpart of ``keystone_tpu/ops/fisher_vector_pallas.py`` (the Pallas TPU
 kernel) and of ``nodes/images/external/fisher_vector.py::_fv_tpu`` (its XLA
 twin). ``fisher_vectors`` takes (B, m, d) descriptor sets to (B, 2·k·d) raw
-Fisher vectors laid out ``[gmu | gvar]``, each k-major:
+Fisher vectors laid out ``[gmu | gvar]``, each k-major. Both versions sum
+the statistics in centred form, Σ r (x − μ) and Σ r (x − μ)², where the
+reference expands them (see ``fisher_vectors_plain``); the plain version
+forms the quadratic form of the logits from x − μ too, and the kernel
+expands it on the tensor cores in 3xTF32:
 
 - on a CUDA tensor it launches ``csrc/fisher_vector.cu`` or raises;
 - on a CPU tensor it runs ``fisher_vectors_plain``, the plain PyTorch
@@ -41,6 +45,8 @@ _count_lock = threading.Lock()
 # block's fixed cost is priced at this many tiles' work.
 _MIN_SPLIT_TILES = 2
 _BLOCK_OVERHEAD_TILES = 1
+# Differences x − μ the plain version holds at once: 256 MiB of float32.
+_CENTRED_CHUNK = 1 << 26
 
 
 class FVOperands(NamedTuple):
@@ -90,24 +96,51 @@ def fv_operands(weights, means, variances) -> FVOperands:
     )
 
 
+def _chunks(X, k: int):
+    """Component ranges whose differences X − μ (B, m, c, d) hold at most
+    ``_CENTRED_CHUNK`` elements."""
+    B, m, d = X.shape
+    step = max(1, _CENTRED_CHUNK // max(1, B * m * d))
+    return [(s, min(k, s + step)) for s in range(0, k, step)]
+
+
+def centred_quad(X, mu, inv):
+    """Σ_f (x_if − μ_jf)² / var_jf, (B, m, k), from the differences."""
+    parts = []
+    for s, e in _chunks(X, mu.shape[0]):
+        diff = X[:, :, None, :] - mu[s:e]  # (B, m, c, d)
+        parts.append((diff * diff * inv[s:e]).sum(dim=-1))
+    return torch.cat(parts, dim=-1)
+
+
+def centred_statistics(r, X, mu):
+    """g1 = Σ_i r (x_i − μ_j) and c2 = Σ_i r (x_i − μ_j)², each (B, k, d),
+    from r (B, m, k), X (B, m, d) and μ (k, d). The differences are formed
+    before any sum, as the kernel forms them."""
+    g1, c2 = [], []
+    for s, e in _chunks(X, mu.shape[0]):
+        diff = X[:, :, None, :] - mu[s:e]  # (B, m, c, d)
+        rd = r[..., s:e, None] * diff
+        g1.append(rd.sum(dim=1))
+        c2.append((rd * diff).sum(dim=1))
+    return torch.cat(g1, dim=1), torch.cat(c2, dim=1)
+
+
 def fisher_vectors_plain(X, weights, means, variances) -> torch.Tensor:
-    """(B, m, d) → (B, 2·k·d): the plain PyTorch version of ``_fv_tpu``."""
+    """(B, m, d) → (B, 2·k·d): the plain PyTorch version of the kernel, the
+    function ``_fv_tpu`` computes. It sums the quadratic form and the
+    statistics from the differences x − μ, where ``_fv_tpu`` expands them
+    (x²/σ² − 2xμ/σ² + μ²/σ², and rᵀx² − 2μ rᵀx + rs μ²). In float32 the
+    expanded forms lose the result once variances sit at the 1e-4 floor far
+    from 0, as on a GMM fitted to real descriptors; elsewhere the two differ
+    in rounding only."""
     B, m, d = X.shape
     w, inv, logw_norm, cm, cv = fv_constants(weights, means, variances, m)
-    mu = means
-    quad = (
-        torch.einsum("bmd,kd->bmk", X * X, inv)
-        - 2.0 * torch.einsum("bmd,kd->bmk", X, mu * inv)
-        + (mu * mu * inv).sum(dim=1)
-    )
-    log_r = logw_norm - 0.5 * quad  # (B, m, k)
-    r = torch.softmax(log_r, dim=-1)
-    sigma = torch.sqrt(variances)
-    rx = torch.einsum("bmk,bmd->bkd", r, X)
+    r = torch.softmax(logw_norm - 0.5 * centred_quad(X, means, inv), dim=-1)  # (B, m, k)
+    g1, c2 = centred_statistics(r, X, means)
     rsum = r.sum(dim=1)  # (B, k)
-    gmu = (rx - rsum[..., None] * mu) / sigma
-    rx2 = torch.einsum("bmk,bmd->bkd", r, X * X)
-    gvar = (rx2 - 2.0 * mu * rx + rsum[..., None] * (mu * mu)) * inv - rsum[..., None]
+    gmu = g1 / torch.sqrt(variances)
+    gvar = c2 * inv - rsum[..., None]
     return torch.cat(
         [(gmu * cm).reshape(B, -1), (gvar * cv).reshape(B, -1)], dim=-1
     ).to(torch.float32)

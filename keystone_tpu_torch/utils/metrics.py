@@ -258,6 +258,16 @@ class ServePlanCounters(CounterSet):
 serve_plan_counters = metrics_registry.register("serve_plan", ServePlanCounters())
 
 
+class IngestCounters(CounterSet):
+    """Process-wide JPEG decode batches by route (``loaders/imagenet.py``):
+    ``native_batches``, ``pil_batches``, and ``pil_fallback_batches``, the
+    batches ``auto`` handed to PIL after the native pool failed on one of
+    their images."""
+
+
+ingest_counters = metrics_registry.register("ingest", IngestCounters())
+
+
 def device_hbm_bytes(device=None) -> int:
     """Memory of a CUDA device (``total_memory``; device 0 when ``device``
     is None and a card is present), else ``HBM_BUDGET_BYTES`` (the CPU

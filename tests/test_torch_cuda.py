@@ -57,6 +57,13 @@ PCA components up to sign at atol 1e-3 (rounding rotates components whose
 singular values are close), the GMM (means in the same signs) within 1e-2
 of each array's largest magnitude, and test scores within 1e-2 of the
 largest |score|.
+
+The learning nodes and descriptors of the last slice on the card against
+the CPU: kernel ridge regression by CG and by Nyström PCG (α and
+predictions within 1e-3 of the largest |value|, iterations within 2;
+float32 CG, the two devices sum in other orders), HOG and DAISY within atol
+1e-5 on unit-norm descriptors; native SIFT's descriptors come to the card
+in the layout of the ``xla`` backend, within the descriptor tolerance.
 """
 
 import threading
@@ -132,10 +139,21 @@ def test_kernel_matches_plain(cuda, B, m, d, k, zero_component):
     torch.testing.assert_close(got, ref, **TOL)
 
 
-def test_kernel_matches_plain_near_floor_variances(cuda):
-    # Variances uniform in 1e-4..1e-3, as a fitted GMM reaches, with the
-    # means a few standard deviations apart.
-    case = _gmm_case(3, 3721, 64, 256, 6, var_range=(1e-4, 1e-3), mu_scale=0.05)
+@pytest.mark.parametrize(
+    "B, m, k, var_range, mu_scale",
+    [
+        # Variances uniform in 1e-4..1e-3, as a fitted GMM reaches, with
+        # the means a few standard deviations apart.
+        (3, 3721, 256, (1e-4, 1e-3), 0.05),
+        # Every variance at the floor and means fifty standard deviations
+        # from 0, as on a GMM fitted to real descriptors: the statistics
+        # are summed from x - mu, so the kernel stays within TOL.
+        (64, 841, 16, (1e-4, 1e-4), 0.5),
+        (2, 3721, 256, (1e-4, 1e-4), 0.5),
+    ],
+)
+def test_kernel_matches_plain_near_floor_variances(cuda, B, m, k, var_range, mu_scale):
+    case = _gmm_case(B, m, 64, k, 6, var_range=var_range, mu_scale=mu_scale)
     X, w, mu, var = (torch.from_numpy(a).to(cuda) for a in case)
     got = fvo.fisher_vectors(X, fvo.fv_operands(w, mu, var))
     ref = fvo.fisher_vectors_plain(X, w, mu, var)
@@ -443,3 +461,41 @@ def test_speech_and_text_pipelines_on_the_card_match_the_cpu(cuda):
     conf = amazon_reviews.AmazonReviewsConfig(synthetic_n=400, num_features=300)
     got, want = (amazon_reviews.run(conf, dev)["auc"] for dev in (cuda, "cpu"))
     assert abs(got - want) <= 0.01
+
+
+def test_kernel_ridge_on_the_card_matches_the_cpu(cuda):
+    from keystone_tpu_torch.nodes.learning.kernel_ridge import KernelRidgeRegression
+
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(600, 12)).astype(np.float32)
+    Y = rng.normal(size=(600, 3)).astype(np.float32)
+    for landmarks in (None, 100):
+        ests = {dev: KernelRidgeRegression(gamma=0.1, lam=1e-2, max_iters=300, tol=1e-6,
+                                           precond_landmarks=landmarks, device=dev) for dev in (cuda, "cpu")}
+        models = {dev: est.fit(X, Y) for dev, est in ests.items()}
+        assert models[cuda].alpha.device.type == "cuda"
+        got, want = models[cuda].alpha.cpu().numpy(), models["cpu"].alpha.numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.abs(want).max())
+        assert abs(ests[cuda].last_cg_iters - ests["cpu"].last_cg_iters) <= 2
+        pred = {dev: m(torch.from_numpy(X).to(m.alpha.device)).cpu().numpy() for dev, m in models.items()}
+        np.testing.assert_allclose(pred[cuda], pred["cpu"], rtol=0, atol=1e-3 * np.abs(pred["cpu"]).max())
+
+
+def test_hog_and_daisy_on_the_card_match_the_cpu(cuda):
+    from keystone_tpu_torch.nodes.images.daisy import DaisyExtractor
+    from keystone_tpu_torch.nodes.images.hog import HogExtractor
+
+    X = torch.from_numpy(np.random.default_rng(6).uniform(size=(3, 67, 81, 3)).astype(np.float32))
+    for node in (HogExtractor(), DaisyExtractor()):
+        got = node(X.to(cuda))
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), node(X), rtol=0, atol=1e-5)
+
+
+def test_native_sift_comes_to_the_card_in_the_xla_layout(cuda):
+    from keystone_tpu_torch.nodes.images.external.sift import SIFTExtractor
+
+    imgs = torch.from_numpy(np.random.default_rng(7).uniform(size=(2, 64, 72, 1)).astype(np.float32)).to(cuda)
+    got = SIFTExtractor(backend="native")(imgs)
+    assert got.device == imgs.device
+    torch.testing.assert_close(got, SIFTExtractor(backend="xla")(imgs), **DESC_TOL)

@@ -16,6 +16,7 @@ from keystone_tpu.nodes.images.external.fisher_vector import _fv_tpu
 from keystone_tpu.ops import fisher_vectors_pallas
 from keystone_tpu_torch.nodes.images.external.fisher_vector import FisherVector
 from keystone_tpu_torch.ops.fisher_vector import (
+    centred_statistics,
     fisher_vectors,
     fisher_vectors_plain,
     fv_operands,
@@ -97,8 +98,8 @@ def test_split_plan_covers_every_row_once(B):
 # hi = v rounded to TF32 (to nearest, ties away from zero: the kernel's
 # to_tf32) and lo = v - hi cut to TF32 toward zero (the kernel's split).
 # Each partial product of two TF32 values is exact in float32, so float32
-# matmuls of the parts emulate the tensor cores up to the order of the
-# float32 sums.
+# matmuls of the parts emulate the tensor cores' logits up to the order of
+# the float32 sums. The statistics are float32 on the CUDA cores.
 
 
 def _round_tf32(v):
@@ -118,17 +119,17 @@ def _split_matmul(a, b, passes):
 
 
 def _fv_tensor_core(X, ops, passes):
-    """The kernel's two products on the kernel's operands (``fv_operands``):
-    logits = bias + [x² | x]·W', W' = -½ [inv_t ; m2_t]; then
-    [t1 | t2] = rᵀ [x | x²] and the reduce kernel's scalings."""
+    """The kernel's arithmetic on the kernel's operands (``fv_operands``):
+    logits = bias + [x² | x]·W', W' = -½ [inv_t ; m2_t], on the tensor
+    cores; then the centred statistics in float32 on the CUDA cores and the
+    reduce kernel's scalings."""
     B, m, d = X.shape
     W = torch.cat([-0.5 * ops.inv_t, -0.5 * ops.m2_t])
     r = torch.softmax(ops.bias + _split_matmul(torch.cat([X * X, X], -1), W, passes), -1)
-    T = _split_matmul(r.transpose(1, 2), torch.cat([X, X * X], -1), passes)
-    t1, t2, rs = T[..., :d], T[..., d:], r.sum(1)[..., None]
-    mu = ops.means
-    gmu = (t1 - rs * mu) / ops.sigma
-    gvar = (t2 - 2.0 * mu * t1 + rs * mu * mu) * ops.inv - rs
+    g1, c2 = centred_statistics(r, X, ops.means)
+    rs = r.sum(1)[..., None]
+    gmu = g1 / ops.sigma
+    gvar = c2 * ops.inv - rs
     cm = 1.0 / (m * torch.sqrt(ops.w_floor))[:, None]
     cv = 1.0 / (m * torch.sqrt(2.0 * ops.w_floor))[:, None]
     return torch.cat([(gmu * cm).reshape(B, -1), (gvar * cv).reshape(B, -1)], -1)
@@ -168,9 +169,46 @@ def test_3xtf32_products_keep_float32_accuracy(near_floor):
 
 
 def test_single_tf32_misses_the_tolerance():
-    X, w, mu, var = _full_width_case(near_floor=True)
+    """Unit variances spread the responsibilities over several components,
+    so the logits' rounding shows: single TF32 misses, 3xTF32 does not."""
+    X, w, mu, var = _full_width_case(near_floor=False)
     t = [torch.from_numpy(a) for a in (X, w, mu, var)]
     one = _fv_tensor_core(t[0], fv_operands(*t[1:]), passes=1).numpy()
     f32 = fisher_vectors_plain(*t).numpy()
     assert _within(_fv_tensor_core(t[0], fv_operands(*t[1:]), passes=3).numpy(), f32)
     assert not _within(one, f32)
+
+
+def _at_floor_case():
+    """VOCSIFTFisher's mixture shape (d 64, k 16), every variance at the
+    1e-4 floor and means of scale 0.5, with two images of 841 descriptors
+    drawn from it: a component sits 50 standard deviations from 0 in each
+    feature, as components of a GMM fitted to real descriptors do."""
+    rng = np.random.default_rng(9)
+    k, d = 16, 64
+    w = rng.uniform(0.1, 1.0, size=k)
+    w /= w.sum()
+    mu = 0.5 * rng.normal(size=(k, d))
+    var = np.full((k, d), 1e-4)
+    z = rng.integers(0, k, size=(2, 841))
+    X = mu[z] + np.sqrt(var[z]) * rng.normal(size=(2, 841, d))
+    return [a.astype(np.float32) for a in (X, w, mu, var)]
+
+
+def test_centred_statistics_hold_at_the_variance_floor():
+    """The kernel's arithmetic and the plain version stay within TOL of
+    float64 at the floor, where the reference's expanded forms (``_fv_tpu``,
+    float32) do not: the terms of rᵀx² − 2μ rᵀx + rs μ² are ~10⁴ times the
+    centred sum."""
+    X, w, mu, var = _at_floor_case()
+    t = [torch.from_numpy(a) for a in (X, w, mu, var)]
+    f64 = fisher_vectors_plain(*(a.double() for a in t)).numpy()
+    got = _fv_tensor_core(t[0], fv_operands(*t[1:]), passes=3).numpy()
+    plain = fisher_vectors_plain(*t).numpy()
+    expanded = np.asarray(
+        _fv_tpu(jnp.asarray(X), jnp.asarray(w), jnp.asarray(mu), jnp.asarray(var))
+    )
+    np.testing.assert_allclose(got, f64, **TOL)
+    np.testing.assert_allclose(plain, f64, **TOL)
+    np.testing.assert_allclose(got, plain, **TOL)
+    assert not _within(expanded, f64)

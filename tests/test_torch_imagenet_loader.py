@@ -1,14 +1,20 @@
 """The port's ImageNet loader held against the JAX package's, on the
 committed fixtures (one synset as a ``.tar``, one as a directory, and the
-label map), with the reference's PIL decode (``KEYSTONE_JPEG_BACKEND=pil``;
-its ``auto`` would try its native pool first).
+label map), with PIL decode (``KEYSTONE_JPEG_BACKEND=pil``) unless a test
+names another backend.
 
 Everything is exact: the same bytes, labels and order from ``iter_jobs``,
 and the same float32 arrays, bit for bit, from ``load``,
 ``load_balanced_sample`` and ``stream_batches``. A stream that its
 consumer abandons, directly or through ``Transformer.apply_batches``,
 leaves no thread of the port alive; a JPEG that does not decode raises in
-the consumer; the ``native`` backend, not ported, raises.
+the consumer. The backends, against the reference under the same
+environment: ``native`` decodes in the port's libjpeg pool as the
+reference's ``native`` does, bit for bit, and ``auto`` likewise where the
+pool is built; ``auto`` hands a batch the pool fails on (a CMYK JPEG) to
+PIL, as the reference's does, and counts it; with the port's build forced
+to fail (and the reference's pool reported missing), ``native`` raises and
+``auto`` decodes with PIL; an unknown backend raises.
 """
 
 import gc
@@ -23,6 +29,7 @@ import pytest
 from keystone_tpu.loaders.imagenet import ImageNetLoader as JImageNetLoader
 from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.loaders.stream import BatchIterator
+from keystone_tpu_torch.utils.metrics import ingest_counters
 from keystone_tpu_torch.workflow import Pipeline
 
 ROOT = os.path.join(os.path.dirname(__file__), "fixtures", "data", "imagenet")
@@ -178,20 +185,96 @@ def test_a_corrupt_jpeg_raises_in_the_consumer(tmp_path, label_map, through):
     assert _no_port_threads()
 
 
-@pytest.mark.parametrize("backend, error", [("native", RuntimeError), ("turbo", ValueError)])
-def test_a_backend_that_is_not_ported_raises(monkeypatch, label_map, backend, error):
+COMPILER_OUTPUT = "jpeg_pool.cpp:1:1: error: forced by the test"
+
+
+def _equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture
+def broken_build(monkeypatch):
+    """The port's library as if ``g++`` had failed, and the reference's
+    decode pool reported missing: the same environment for both."""
+    from keystone_tpu import native as jnative
+    from keystone_tpu_torch import build, native
+
+    def fail():
+        raise RuntimeError(f"g++ failed for jpeg_pool.cpp (rc 1):\n{COMPILER_OUTPUT}")
+
+    monkeypatch.setattr(build, "native_library", fail)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_error", None)
+    monkeypatch.setattr(native, "_has_jpeg", False)
+    monkeypatch.setattr(jnative, "jpeg_available", lambda: False)
+
+
+def _load_both(backend, data=DATA, label_map=None, monkeypatch=None):
     monkeypatch.setenv("KEYSTONE_JPEG_BACKEND", backend)
-    with pytest.raises(error, match="KEYSTONE_JPEG_BACKEND"):
+    got = ImageNetLoader.load(data, label_map, size=SIZE)
+    want = JImageNetLoader.load(data, label_map, size=SIZE)
+    return got, want
+
+
+@pytest.mark.parametrize("backend, error", [("native", RuntimeError), ("turbo", ValueError)])
+def test_a_backend_that_is_not_ported_raises(monkeypatch, broken_build, label_map, backend, error):
+    """A backend that is not there raises: ``native`` where the library did
+    not build (forced here; the message carries the compiler's output), and
+    a name that is no backend."""
+    monkeypatch.setenv("KEYSTONE_JPEG_BACKEND", backend)
+    with pytest.raises(error, match="KEYSTONE_JPEG_BACKEND") as raised:
         ImageNetLoader.load(DATA, label_map, size=SIZE)
+    if backend == "native":
+        assert COMPILER_OUTPUT in str(raised.value)
+        with pytest.raises(RuntimeError, match="native jpeg pool unavailable"):
+            JImageNetLoader.load(DATA, label_map, size=SIZE)
     with pytest.raises(error, match="KEYSTONE_JPEG_BACKEND"):
         next(ImageNetLoader.stream_batches(DATA, label_map, size=SIZE))
     assert _no_port_threads()
 
 
-def test_auto_decodes_with_pil(monkeypatch, label_map):
-    want = ImageNetLoader.load(DATA, label_map, size=SIZE).data
+def test_auto_decodes_with_pil(monkeypatch, broken_build, label_map):
+    """Where the pool is not built, ``auto`` decodes with PIL in both."""
+    pil = ImageNetLoader.load(DATA, label_map, size=SIZE).data
+    before = ingest_counters.snapshot()
     monkeypatch.delenv("KEYSTONE_JPEG_BACKEND")
-    np.testing.assert_array_equal(ImageNetLoader.load(DATA, label_map, size=SIZE).data, want)
+    got = ImageNetLoader.load(DATA, label_map, size=SIZE).data
+    np.testing.assert_array_equal(got, pil)
+    np.testing.assert_array_equal(got, JImageNetLoader.load(DATA, label_map, size=SIZE).data)
+    after = ingest_counters.snapshot()
+    assert after.get("pil_batches", 0) > before.get("pil_batches", 0)
+    assert after.get("pil_fallback_batches", 0) == before.get("pil_fallback_batches", 0)
+
+
+@pytest.mark.parametrize("backend", ["native", "auto"])
+def test_native_decodes_as_the_reference(monkeypatch, label_map, backend):
+    before = ingest_counters.get("native_batches")
+    got, want = _load_both(backend, label_map=label_map, monkeypatch=monkeypatch)
+    _equal(got.data, want.data)
+    _equal(got.labels, want.labels)
+    assert ingest_counters.get("native_batches") > before
+    # Bilinear resize of a DCT-scaled decode: other pixels than PIL's.
+    monkeypatch.setenv("KEYSTONE_JPEG_BACKEND", "pil")
+    assert not np.array_equal(got.data, ImageNetLoader.load(DATA, label_map, size=SIZE).data)
+    monkeypatch.setenv("KEYSTONE_JPEG_BACKEND", backend)
+    streamed = np.concatenate([X for X, _ in ImageNetLoader.stream_batches(DATA, label_map, batch_size=2, size=SIZE)])
+    _equal(streamed, got.data)
+
+
+def test_auto_hands_what_the_pool_cannot_decode_to_pil(tmp_path, monkeypatch, label_map):
+    from PIL import Image
+
+    data = tmp_path / "data"
+    shutil.copytree(DATA, data)
+    Image.new("CMYK", (40, 30), (10, 200, 30, 5)).save(data / "n02102040" / "n02102040_0.JPEG", format="JPEG")
+    before = ingest_counters.get("pil_fallback_batches")
+    got, want = _load_both("auto", str(data), label_map, monkeypatch)
+    _equal(got.data, want.data)
+    assert ingest_counters.get("pil_fallback_batches") == before + 1
+    with pytest.raises(ValueError, match="jpeg decode failed"):
+        _load_both("native", str(data), label_map, monkeypatch)
 
 
 def test_labeled_data_keeps_its_old_import_path():

@@ -3,9 +3,12 @@ the CPU.
 
 - ``VOCLoader.load`` on the JPEG and XML fixtures, and ``synthetic`` with
   and without label noise: the same arrays, bit for bit.
-- The backends: ``sift_backend="native"`` and ``fv_backend="native"`` (the
-  reference's host C++ kernels) raise; ``tpu`` and ``pallas`` name the
-  port's Fisher-vector kernel. The port's default SIFT backend is ``xla``.
+- The backends: ``sift_backend="native"`` and ``fv_backend="native"`` run
+  the port's build of the reference's host C++ kernels, and raise with the
+  compiler's output where that build fails (forced here); ``tpu`` and
+  ``pallas`` name the port's Fisher-vector kernel. The port's default SIFT
+  backend is ``xla``. ``main`` with both native backends reaches the mAP
+  of the reference's ``run`` at its native defaults within 0.05.
 - The mean average precision of the same scores: equal to 1e-12.
 - The pipeline at 48 images of 64×64, 4 classes, ``pca_dims=16``,
   ``gmm_k=4``: the reference is fitted with its XLA SIFT and its Fisher
@@ -117,20 +120,50 @@ def test_synthetic_bit_equal(monkeypatch, seed, classes, noise):
 # --- backends and the evaluator --------------------------------------------
 
 
-def test_native_backends_raise_and_xla_is_the_default():
+COMPILER_OUTPUT = "sift.cpp:1:1: error: forced by the test"
+
+
+def test_native_backends_raise_and_xla_is_the_default(monkeypatch):
+    """``xla`` stays the port's default SIFT backend, where the reference's
+    is ``native``. With the port's native build forced to fail, the native
+    SIFT and Fisher-vector backends raise with the compiler's output; an
+    unknown backend raises in any case."""
+    from keystone_tpu_torch import build, native
+
     assert port.VOCSIFTFisherConfig().sift_backend == "xla"
     assert ref.VOCSIFTFisherConfig().sift_backend == "native"
-    with pytest.raises(RuntimeError, match="Queue 1 item 5"):
-        SIFTExtractor(backend="native")
+    assert SIFTExtractor().backend == "xla"
     with pytest.raises(ValueError, match="SIFT backend"):
         SIFTExtractor(backend="gpu")
     images = np.zeros((2, 32, 32, 3), np.float32)
-    with pytest.raises(RuntimeError, match="Queue 1 item 5"):
-        fit_fisher_featurizer(SIFTExtractor(), images, pca_dims=8, gmm_k=2, backend="native", device="cpu")
     with pytest.raises(ValueError, match="Fisher-vector backend"):
         fit_fisher_featurizer(SIFTExtractor(), images, pca_dims=8, gmm_k=2, backend="cuda", device="cpu")
-    with pytest.raises(RuntimeError, match="Queue 1 item 5"):
+
+    def fail():
+        raise RuntimeError(f"g++ failed for sift.cpp (rc 1):\n{COMPILER_OUTPUT}")
+
+    monkeypatch.setattr(build, "native_library", fail)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_error", None)
+    with pytest.raises(RuntimeError, match=COMPILER_OUTPUT):
+        SIFTExtractor(backend="native")
+    with pytest.raises(RuntimeError, match=COMPILER_OUTPUT):
+        fit_fisher_featurizer(SIFTExtractor(), images, pca_dims=8, gmm_k=2, backend="native", device="cpu")
+    with pytest.raises(RuntimeError, match=COMPILER_OUTPUT):
         port.main(["--device", "cpu", "--sift-backend", "native"])
+
+
+def test_native_backends_run_the_pipeline():
+    """Native SIFT and the native Fisher vector through ``run``: the
+    reference's ``run`` at its native defaults (native SIFT, and its GMM by
+    the native EM) reaches the same mAP within 0.05, and the port's native
+    SIFT run within 0.05 of its ``xla`` run."""
+    want = ref.run(ref.VOCSIFTFisherConfig(**SMALL))
+    native_run = port.run(port.VOCSIFTFisherConfig(**SMALL, sift_backend="native", fv_backend="native"),
+                          device="cpu")
+    xla_run = port.run(port.VOCSIFTFisherConfig(**SMALL), device="cpu")
+    assert abs(native_run["map"] - want["map"]) <= 0.05, (native_run["summary"], want["summary"])
+    assert abs(native_run["map"] - xla_run["map"]) <= 0.05, (native_run["summary"], xla_run["summary"])
 
 
 def test_mean_average_precision_equal(rng):

@@ -46,7 +46,18 @@ script exits non-zero:
    branch and training batch), the objective after each epoch (it may not
    grow by more than a relative 1e-3), the train and test errors and the
    peak device memory, and checks the train error and, in float64, the
-   last block's normal equations; then serves the fitted pipeline, carried through
+   last block's normal equations (the fit goes through the graph executor,
+   and its peak may exceed the eager chain's 18.4 GiB by at most 1 GiB);
+   then the ``workflow`` phase on the same images: the optimizer's plan
+   for the graph fit (operators before and after each rule batch, the
+   fused chains, the decision log), the node-level solver choice on the
+   8,192 x 65,536 features bit-equal to the concrete estimator's fit, the
+   host cost of ``pipeline(X).get()`` against the fused chain's eager call
+   and the engine at 1 and 64 images (an optimizer pass and a walk timed
+   apart), the reduced fit twice through a disk fit cache in a temporary
+   directory (0 fits and the same bits the second time), the parallel walk
+   bit-equal to the serial one, and the auto-cache rule on a prefix with
+   two consumers; then serves the fitted pipeline, carried through
    ``convert.py``, with ``CompiledPipeline`` for requests of 1 and 64
    images and checks its top-k against the fitted pipeline's direct call;
    then the precision ladder on the fitted pipeline: engines at ``f32``,
@@ -144,6 +155,7 @@ and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -190,6 +202,12 @@ SOLVE_KAPPA_U = 4.0
 F32_UNIT_ROUNDOFF = 2.0**-24
 # The full-width head's train top-1 error: 65,536 features over 8,192 rows.
 TRAIN_ERROR_MAX = 0.01
+
+# The full-width fit's peak device memory through the eager chain of PRs
+# 4-7 (PERF.md §5); the graph executor's fit may exceed it by at most
+# PEAK_SLACK_GIB.
+EAGER_FIT_PEAK_GIB = 18.4
+PEAK_SLACK_GIB = 1.0
 
 FULL = dict(B=4, m=3721, d=64, k=256)
 TTA_M = 2809  # descriptors of a 224x224 view at step 4, bin 4
@@ -526,7 +544,7 @@ def serve(torch) -> dict:
         build_serving_pipeline,
         seeded_params,
     )
-    from keystone_tpu_torch.workflow import Pipeline
+    from keystone_tpu_torch.workflow import FusedTransformer
     from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
     conf = ImageNetSiftLcsFVConfig(gmm_k=256, pca_dims=64, top_k=5)
@@ -534,10 +552,13 @@ def serve(torch) -> dict:
     t0 = time.perf_counter()
     raw = seeded_params(seed=0, gmm_k=256, pca_dims=64, num_classes=classes, device="cuda", conf=conf)
     params = params_from_numpy(raw, "cuda")
-    pipe = build_serving_pipeline(params, conf).eval()
     if params.head.W.shape != (conf.feature_dim, classes) or conf.feature_dim != 65536:
         raise AssertionError(f"head {tuple(params.head.W.shape)}, want (65536, {classes})")
-    engine = CompiledPipeline(pipe, max_batch=64, devices=["cuda"])
+    # The lazy pipeline, fitted and lowered by the engine to its serving
+    # chain (the gathered branches, the head and the top-k as one module):
+    # what each bucket captures, and the eager chain it is held against.
+    engine = CompiledPipeline(build_serving_pipeline(params, conf), max_batch=64, devices=["cuda"])
+    pipe = engine.transformer
     print(f"params and pipeline: {time.perf_counter() - t0:.3f} s")
     torch.cuda.synchronize()
     before_warmup = torch.cuda.memory_allocated()
@@ -624,7 +645,7 @@ def serve(torch) -> dict:
 
     # Every bucket: graphed top-5 and scores bit-equal to the eager chain's
     # on the same padded batch.
-    scorer = Pipeline(list(pipe.stages)[:-1]).eval()
+    scorer = FusedTransformer(list(pipe.stages)[:-1]).eval()
     score_engine = CompiledPipeline(scorer, max_batch=64, devices=["cuda"]).warmup((256, 256, 3))
     for b in engine.ladder:
         X = images[:b]
@@ -647,7 +668,7 @@ def serve(torch) -> dict:
             raise AssertionError("scores not finite or of the wrong shape")
         scale = float(s_kernel.abs().max())
         cpu_params = params_from_numpy({k: v.cpu() if torch.is_tensor(v) else v for k, v in raw.items()}, "cpu")
-        cpu_scorer = Pipeline(list(build_serving_pipeline(cpu_params, conf).stages)[:-1]).eval()
+        cpu_scorer = FusedTransformer(list(build_serving_pipeline(cpu_params, conf).serving_chain().stages)[:-1]).eval()
         s_cpu = cpu_scorer(X3[:1].cpu())
         s_plain = with_plain_fv(scorer, FisherVector, fvo, nn)(X3)
     err_plain = float((s_plain - s_kernel).abs().max())
@@ -746,6 +767,7 @@ def fit_reduced(torch) -> None:
         fit,
         resolve_scale,
     )
+    from keystone_tpu_torch.workflow import on_device
 
     conf = resolve_scale(ImageNetSiftLcsFVConfig(gmm_k=16, pca_dims=16, synthetic_n=256, synthetic_classes=16))
     train, test = ImageNetLoader.synthetic(n=conf.synthetic_n, num_classes=conf.synthetic_classes, seed=conf.seed)
@@ -755,8 +777,8 @@ def fit_reduced(torch) -> None:
         scored = fit(conf, train, conf.synthetic_classes, device=dev)
         got[dev] = params_to_numpy(scored)
         err[dev] = evaluate(scored, conf, test, device=dev)
-        with torch.inference_mode():
-            scores[dev] = scored(torch.from_numpy(test.data).to(dev)).cpu().numpy()
+        with torch.inference_mode(), on_device(dev):
+            scores[dev] = scored(torch.from_numpy(test.data).to(dev)).get().cpu().numpy()
         print(f"reduced fit on {dev}: {time.perf_counter() - t0:.3f} s, feature dim "
               f"{conf.feature_dim}, test top-{conf.top_k} error {err[dev][0]:.4f}, top-1 {err[dev][1]:.4f}")
     card, cpu = got["cuda"], got["cpu"]
@@ -813,13 +835,14 @@ def check_last_block(torch, scored, conf, train, features=None) -> None:
     SOLVE_KAPPA_U times the rounding that float32 leaves at it."""
     from keystone_tpu_torch.nodes.learning.block_least_squares import BlockWeightedLeastSquaresEstimator
     from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
-    from keystone_tpu_torch.workflow import Pipeline
+    from keystone_tpu_torch.workflow import FusedTransformer
 
     t0 = time.perf_counter()
-    head = scored.stages[-1]
+    chain = scored.serving_chain()
+    head = chain.stages[-1]
     with torch.inference_mode():
         if features is None:
-            A = Pipeline(scored.stages[:-1]).apply_in_batches(train.data, device="cuda").double()
+            A = FusedTransformer(chain.stages[:-1]).apply_in_batches(train.data, device="cuda").double()
         else:
             A = torch.from_numpy(features).cuda().double()
         Y = ClassLabelIndicators(1000)(torch.from_numpy(train.labels).cuda()).double()
@@ -876,14 +899,17 @@ def fit_full(torch, train, test) -> dict:
     wall = time.perf_counter() - t0
     launches = fvo.LAUNCHES  # the fit path's run ends here
     peak = torch.cuda.max_memory_allocated() / 2**30
-    head = scored.stages[-1]
+    head = scored.transformers()[-1]
     print(f"fit wall {wall:.3f} s; head W {tuple(head.W.shape)}, blocks {len(head.blocks)} of "
           f"{head.blocks[0][1] - head.blocks[0][0]}")
     label = {"apply the prefix to the fit data": "featurizing the training set"}
     print("fit stages (s, between CUDA events): "
           + ", ".join(f"{label.get(name, name)} {s:.4f}" for name, s in fit_s.items())
           + f"; sum {sum(fit_s.values()):.4f}")
-    print(f"peak device memory of the fit: {peak:.3f} GiB")
+    print(f"peak device memory of the fit: {peak:.3f} GiB (the eager chain's fit: {EAGER_FIT_PEAK_GIB} GiB, "
+          f"PERF.md §5; the graph fit may exceed it by {PEAK_SLACK_GIB} GiB)")
+    if peak > EAGER_FIT_PEAK_GIB + PEAK_SLACK_GIB:
+        raise AssertionError(f"the graph fit peaked at {peak:.3f} GiB")
     want_launches = 2 * -(-len(train.data) // 64)
     print(f"fv launches of the fit: {launches} (2 branches x {want_launches // 2} training batches)")
     if launches != want_launches:
@@ -910,7 +936,7 @@ def fit_full(torch, train, test) -> dict:
     served = build_serving_pipeline(params_from_numpy(params_to_numpy(scored), "cuda"), conf)
     engine = CompiledPipeline(served, max_batch=64, devices=["cuda"])
     engine.warmup((256, 256, 3))
-    direct = scored.and_then(TopKClassifier(conf.top_k)).eval()
+    direct = scored.and_then(TopKClassifier(conf.top_k)).serving_chain().eval()
     fvo.LAUNCHES = 0  # serving the fitted pipeline starts here
     served_launches = 0
     for n in (1, 64):
@@ -980,6 +1006,277 @@ def serve_precisions(torch, fitted, test) -> None:
               f"against the oracle's top-1: {reports[1]}")
         del engine
         torch.cuda.empty_cache()
+
+
+def lazy_featurizer(scored):
+    """The fitted featurizer of ``scored`` as a lazy pipeline: each gathered
+    branch's stages composed with ``and_then``, the branches gathered."""
+    from keystone_tpu_torch.workflow import Pipeline
+
+    gather = scored.serving_chain().stages[0]
+    branches = []
+    for branch in gather.branches:
+        p = branch.stages[0].to_pipeline()
+        for stage in branch.stages[1:]:
+            p = p.and_then(stage)
+        branches.append(p)
+    return Pipeline.gather(branches)
+
+
+def counting_fits(classes, into: list):
+    """Patches that append each class's name to ``into`` when its ``fit``
+    runs."""
+    def counted(cls):
+        real = cls.fit
+
+        def fit(self, *args, **kw):
+            into.append(cls.__name__)
+            return real(self, *args, **kw)
+        return patch.object(cls, "fit", fit)
+    return [counted(c) for c in classes]
+
+
+def workflow(torch, np, fvo, fitted, test) -> int:
+    """The graph layer on the card: the optimizer's plan for the full-width
+    graph fit; the node-level solver choice on the 8,192 x 65,536 features
+    against the concrete estimator; the host cost of a graph walk per
+    request against the fused chain's eager call and the engine; the disk
+    fit cache on the reduced fit run twice; the parallel walk against the
+    serial one; the auto-cache rule on a prefix with two consumers.
+    Returns the Fisher-vector launches of the phase."""
+    from contextlib import ExitStack
+
+    from keystone_tpu_torch.config import config
+    from keystone_tpu_torch.convert import params_to_numpy
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+    from keystone_tpu_torch.nodes.images.external.fisher_vector import GMMFisherVectorEstimator
+    from keystone_tpu_torch.nodes.learning.block_least_squares import (
+        BlockLeastSquaresEstimator,
+        BlockWeightedLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.least_squares import LeastSquaresEstimator
+    from keystone_tpu_torch.nodes.learning.pca import PCAEstimator
+    from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
+    from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
+    from keystone_tpu_torch.workflow import PipelineEnv, on_device, rules
+    from keystone_tpu_torch.workflow.disk_cache import DiskFitCache
+    from keystone_tpu_torch.workflow.operators import TransformerOperator
+    from keystone_tpu_torch.workflow.serving import CompiledPipeline
+
+    t_phase = time.perf_counter()
+    conf, scored, train = fitted["conf"], fitted["scored"], fitted["train"]
+    featurizer = lazy_featurizer(scored)
+    env = PipelineEnv.get()
+    images = torch.from_numpy(train.data).cuda()
+    targets = ClassLabelIndicators(1000)(torch.from_numpy(train.labels).cuda())
+    fvo.LAUNCHES = 0  # the workflow phase's run starts here
+
+    # 1. The optimizer's plan for the full-width graph fit (no execution).
+    rules.clear_decisions()
+    plan = featurizer.and_then(
+        BlockWeightedLeastSquaresEstimator(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam,
+                                           mixture_weight=conf.mixture_weight),
+        images, targets)
+    trace = []
+    t0 = time.perf_counter()
+    g = env.optimizer.execute(plan.graph, [plan.sink], trace)
+    opt_ms = 1e3 * (time.perf_counter() - t0)
+    labels = [g.operators[n].label() for n in g.reachable([plan.sink])
+              if isinstance(g.operators[n], TransformerOperator)]
+    print("optimizer plan of the full-width graph fit, operators before -> after each batch: "
+          + ", ".join(f"{name} {a} -> {b}" for name, a, b in trace)
+          + f"; merged nodes {trace[0][1] - trace[0][2]}; one pass {opt_ms:.3f} ms (host)")
+    print("fused chains: " + "; ".join(labels))
+    print(f"decision log: {[d.as_dict() for d in rules.optimizer_decisions()]}")
+    gathered = [lab for lab in labels if lab.startswith("Gather[Fused(GrayScaler|SIFTExtractor")]
+    if len(gathered) != 2:
+        raise AssertionError(f"the plan did not lower both featurizer copies to one gathered module: {labels}")
+    del plan, g
+
+    # 2. Node-level choice: LeastSquaresEstimator dispatched at optimization
+    # time from a 64-image sample of the featurizer, against the concrete
+    # estimator it chose, fitted through the same graph.
+    rules.clear_decisions()
+    ls = LeastSquaresEstimator(lam=conf.lam)
+    t0 = time.perf_counter()
+    node_fit = featurizer.and_then(ls, images, targets).fit()
+    torch.cuda.synchronize()
+    node_s = time.perf_counter() - t0
+    (decision,) = [d for d in rules.optimizer_decisions() if d.rule == "NodeOptimizationRule"]
+    concrete = BlockLeastSquaresEstimator(block_size=ls.block_size, num_iters=ls.num_iters, lam=ls.lam)
+    # The concrete estimator has the chosen one's signature, so the session's
+    # fit cache would serve it the chosen fit: dropped, so that it fits.
+    env.clear_caches()
+    t0 = time.perf_counter()
+    concrete_fit = featurizer.and_then(concrete, images, targets).fit()
+    torch.cuda.synchronize()
+    concrete_s = time.perf_counter() - t0
+    X64 = torch.from_numpy(test.data[:64]).cuda()
+    with torch.inference_mode(), on_device("cuda"):
+        same = (torch.equal(node_fit.transformers()[-1].W, concrete_fit.transformers()[-1].W)
+                and torch.equal(node_fit(X64).get(), concrete_fit(X64).get()))
+    print(f"node-level choice on {decision.cost['shapes']}: {decision.action} ({decision.provenance}: "
+          f"{decision.reason}); graph fit {node_s:.3f} s, the concrete estimator's {concrete_s:.3f} s; "
+          f"W and test scores bit-equal: {same}")
+    if decision.action != "solver=BlockLeastSquaresEstimator" or not same:
+        raise AssertionError("the node-level choice is not the block solver's, bit for bit")
+    del node_fit, concrete_fit
+
+    # 3. Host cost of the graph: a request through pipeline(X).get() (an
+    # optimizer pass and a walk each time), the fused chain called eagerly,
+    # and the CUDA-graph engine, all to host numpy.
+    served = scored.and_then(TopKClassifier(conf.top_k))
+    chain = served.serving_chain().eval()
+    engine = CompiledPipeline(served, max_batch=64, devices=["cuda"]).warmup((256, 256, 3))
+    host = {}
+    for n in (1, 64):
+        X = test.data[:n]
+        walls = {"pipeline(X).get()": [], "fused chain, eager": [], "CompiledPipeline": []}
+        for i in range(2 * REPEATS + 1):
+            t0 = time.perf_counter()
+            with torch.inference_mode(), on_device("cuda"):
+                got = served(X).get().cpu().numpy()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                want = chain(torch.from_numpy(X).cuda()).cpu().numpy()
+            t2 = time.perf_counter()
+            engine(X)
+            t3 = time.perf_counter()
+            if i:  # the first round warms each path
+                for key, dt in zip(walls, (t1 - t0, t2 - t1, t3 - t2)):
+                    walls[key].append(1e3 * dt)
+            if not np.array_equal(got, want):
+                raise AssertionError("the graph walk disagrees with the fused chain's eager call")
+        host[n] = {k: statistics.median(v) for k, v in walls.items()}
+        print(f"request of {n} images, median walls: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in host[n].items()))
+    Xt = torch.from_numpy(test.data[:64]).cuda()
+    opt, walk, eager = [], [], []
+    with torch.inference_mode():
+        for _ in range(2 * REPEATS):
+            ds = served(Xt)
+            t0 = time.perf_counter()
+            g = env.optimizer.execute(ds.graph, [ds.sink])
+            t1 = time.perf_counter()
+            env.executor.execute(g, ds.sink)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            chain(Xt)
+            t4 = time.perf_counter()
+            torch.cuda.synchronize()
+            opt.append(1e3 * (t1 - t0))
+            walk.append(1e3 * (t2 - t1))
+            eager.append(1e3 * (t4 - t3))
+        device_ms = cuda_ms(lambda: chain(Xt), 5, torch)
+    print(f"host ms of a 64-image batch on the card (medians, nothing awaited): optimizer pass "
+          f"{statistics.median(opt):.3f}, graph walk {statistics.median(walk):.3f} (launches included), the fused "
+          f"chain's eager call {statistics.median(eager):.3f}; device time of the chain {device_ms:.3f} ms")
+    del engine
+
+    # 4. The disk fit cache: the reduced fit twice in a temporary cache
+    # directory, the session caches dropped between the runs.
+    rconf = pipe.resolve_scale(pipe.ImageNetSiftLcsFVConfig(gmm_k=16, pca_dims=16, synthetic_n=256,
+                                                            synthetic_classes=16))
+    rtrain, rtest = ImageNetLoader.synthetic(n=rconf.synthetic_n, num_classes=16, seed=rconf.seed)
+    fits, hits, runs = [], [], []
+    real_get = DiskFitCache.get
+
+    def counting_get(self, key):
+        value = real_get(self, key)
+        hits.append(value is not None)
+        return value
+
+    prior = config.cache_dir
+    with tempfile.TemporaryDirectory(prefix="keystone-smoke-cache-") as cache_dir, ExitStack() as stack:
+        for p in counting_fits((PCAEstimator, GMMFisherVectorEstimator, BlockWeightedLeastSquaresEstimator), fits):
+            stack.enter_context(p)
+        stack.enter_context(patch.object(DiskFitCache, "get", counting_get))
+        config.cache_dir = cache_dir
+        try:
+            for _ in range(2):
+                PipelineEnv.reset()
+                fits.clear()
+                hits.clear()
+                t0 = time.perf_counter()
+                s = pipe.fit(rconf, rtrain, 16, device="cuda")
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                with torch.inference_mode(), on_device("cuda"):
+                    scores = s(rtest.data).get().cpu().numpy()
+                runs.append((secs, list(fits), sum(hits), params_to_numpy(s), scores))
+            entries = sorted(os.listdir(cache_dir))
+        finally:
+            config.cache_dir = prior
+            PipelineEnv.reset()
+    (s1, f1, h1, p1, sc1), (s2, f2, h2, p2, sc2) = runs
+    same = all(np.array_equal(p1[k], p2[k]) for k in p1) and np.array_equal(sc1, sc2)
+    print(f"disk fit cache, reduced fit: run 1 {s1:.3f} s, {len(f1)} fits {f1}, {len(entries)} entries written; "
+          f"run 2 {s2:.3f} s, {len(f2)} fits, {h2} hits; parameters and test scores bit-equal: {same}")
+    if f2 or h2 != 3 or not same:
+        raise AssertionError("the rerun did not come whole from the disk fit cache")
+    env = PipelineEnv.get()
+
+    # 5. The parallel walk (2 workers) on the featurizer over 64 images,
+    # unfused so that the two branches are nodes of their own, against the
+    # serial walk unfused and fused.
+    outs, secs = {}, {}
+    prior_fuse, prior_workers = config.fuse_chains, config.exec_workers
+    try:
+        for name, fuse, workers in (("serial, fused", True, 0), ("serial, unfused", False, 0),
+                                    ("parallel (2 workers), unfused", False, 2)):
+            config.fuse_chains, config.exec_workers = fuse, workers
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode(), on_device("cuda"):
+                outs[name] = featurizer(Xt).get()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+    finally:
+        config.fuse_chains, config.exec_workers = prior_fuse, prior_workers
+    ref = outs["serial, unfused"]
+    equal = {name: torch.equal(out, ref) for name, out in outs.items()}
+    print("featurizer over 64 images: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+          + f"; bit-equal to the serial unfused walk: {equal}")
+    if not all(equal.values()):
+        raise AssertionError("the parallel walk disagrees with the serial one")
+
+    # 6. The auto-cache rule on a prefix with two consumers: the featurizer
+    # over the 512 test images feeds the head's fit and the scoring.
+    Xa = torch.from_numpy(test.data).cuda()
+    ya = ClassLabelIndicators(1000)(torch.from_numpy(test.labels).cuda())
+
+    def fit_and_score():
+        feats = featurizer(Xa)
+        head = BlockWeightedLeastSquaresEstimator(block_size=conf.block_size, num_iters=1, lam=conf.lam,
+                                                  mixture_weight=conf.mixture_weight).with_data(feats, ya)
+        with on_device("cuda"):
+            return head(feats).get()
+
+    rules.clear_decisions()
+    off = fit_and_score()
+    config.auto_cache = True
+    try:
+        t0 = time.perf_counter()
+        on = fit_and_score()
+        torch.cuda.synchronize()
+        on_s = time.perf_counter() - t0
+    finally:
+        config.auto_cache = False
+    auto = env.optimizer.batches[2][1][0]
+    inserted = [d.node for d in rules.optimizer_decisions() if d.action == "cache-insert"]
+    sample_s = sum(p.seconds for _, p in auto.last_profiles)
+    print(f"auto-cache: {len(inserted)} cache nodes inserted ({', '.join(inserted)}); sample profile "
+          f"{sample_s:.3f} s over {len(auto.last_profiles)} nodes "
+          + "(" + ", ".join(f"{lab} {p.seconds:.4f}" for lab, p in auto.last_profiles[:8]) + ", ...)"
+          + f"; fit and score with it {on_s:.3f} s; scores equal to those with it off: {torch.equal(on, off)}")
+    if not inserted or not torch.equal(on, off):
+        raise AssertionError("the auto-cache rule inserted nothing or changed the scores")
+    env.clear_caches()
+    launches = fvo.LAUNCHES  # the workflow phase's run ends here
+    print(f"fv launches of the workflow phase: {launches}; the phase {time.perf_counter() - t_phase:.3f} s (host)")
+    return launches
 
 
 # The streamed solve against the eager one on the same features: the same
@@ -1077,10 +1374,11 @@ def fit_streamed(torch, train, test, eager) -> dict:
     from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
     from keystone_tpu_torch.utils.metrics import metrics_registry
     from keystone_tpu_torch.utils.stages import StageTimer
-    from keystone_tpu_torch.workflow import Pipeline
+    from keystone_tpu_torch.workflow import FusedTransformer
 
     conf, scored = eager["conf"], eager["scored"]
-    featurizer = Pipeline(scored.stages[:-1])
+    chain = scored.serving_chain()
+    featurizer = FusedTransformer(chain.stages[:-1])
     n_iters = conf.num_iters
 
     # 1. The streamed solve against the eager one, on the same features.
@@ -1132,7 +1430,7 @@ def fit_streamed(torch, train, test, eager) -> dict:
           + f"; tol {STREAM_OBJECTIVE_RTOL})")
     if not max(rel) <= STREAM_OBJECTIVE_RTOL:
         raise AssertionError(f"the streamed objectives disagree with the eager ones: {rel}")
-    eager_head = scored.stages[-1]
+    eager_head = chain.stages[-1]
     w_dist = float(torch.linalg.norm(head.W - eager_head.W) / torch.linalg.norm(eager_head.W))
     print(f"streamed W's distance from the eager W, relative to its norm: {w_dist:.3e}")
     streamed_scored = featurizer.and_then(head)
@@ -1188,8 +1486,11 @@ def fit_streamed(torch, train, test, eager) -> dict:
         raise AssertionError(f"fit_streamed launched the fv kernel {fit_launches} times, want {want}")
     # fit_streamed's features again, through the same batches of 256.
     check_last_block(torch, streamed_fit, conf, train,
-                     features=host_features(torch, np, Pipeline(streamed_fit.stages[:-1]), train.data))
+                     features=host_features(torch, np, FusedTransformer(streamed_fit.serving_chain().stages[:-1]),
+                                            train.data))
 
+    # The direct call: the fitted pipeline's serving chain, eagerly.
+    streamed_chain = streamed_fit.serving_chain()
     test_batches = BatchIterator.from_arrays(test.data, test.labels, sconf.stream_batch)
     out = {"fit streamed": fit_launches}
     errs = {}
@@ -1222,7 +1523,7 @@ def fit_streamed(torch, train, test, eager) -> dict:
             # and the head's graph against the eager head.
             first = sconf.stream_batch
             with torch.inference_mode():
-                direct = streamed_fit(torch.from_numpy(test.data[:first]).cuda()).cpu().numpy()
+                direct = streamed_chain(torch.from_numpy(test.data[:first]).cuda()).cpu().numpy()
             head_err = float(np.abs(scores[:first] - direct).max())
             print(f"{name}: first batch's {first} scores against the direct call on it, max abs "
                   f"difference {head_err:.3e}, tol {VIEW_RTOL} x max|score| {np.abs(direct).max():.4e}")
@@ -1244,7 +1545,7 @@ def fit_streamed(torch, train, test, eager) -> dict:
             raise AssertionError(f"{name}: {out[name]} launches, scores {scores.shape}")
     with torch.inference_mode():
         views = patcher(torch.from_numpy(test.data[:64]).cuda())
-        direct = averager.average_scores(streamed_fit(views)).cpu().numpy()
+        direct = averager.average_scores(streamed_chain(views)).cpu().numpy()
     view_err = float(np.abs(tta[:64] - direct).max())
     scale = float(np.abs(direct).max())
     print(f"TTA view accounting, first 64 test images ({views.shape[0]} views of {tuple(views.shape[1:3])}): "
@@ -1352,10 +1653,11 @@ def solver_modes(torch, eager, streamed, test) -> None:
     from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
     from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
     from keystone_tpu_torch.utils.stages import StageTimer
-    from keystone_tpu_torch.workflow import Pipeline
+    from keystone_tpu_torch.workflow import FusedTransformer
 
     conf, scored = eager["conf"], eager["scored"]
-    featurizer = Pipeline(scored.stages[:-1])
+    chain = scored.serving_chain()
+    featurizer = FusedTransformer(chain.stages[:-1])
     A, targets = streamed["A"], streamed["targets"]
     labels = targets.argmax(dim=1)
     A_dev = torch.from_numpy(A).cuda()
@@ -1550,7 +1852,7 @@ def fit_real(torch, eager, root: str) -> tuple:
     from keystone_tpu_torch.loaders.stream import BatchIterator
     from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as pipe
     from keystone_tpu_torch.utils.stages import StageTimer
-    from keystone_tpu_torch.workflow import Pipeline
+    from keystone_tpu_torch.workflow import FusedTransformer
 
     cores = os.cpu_count() or 1
     workers = decode_pool_workers(None)
@@ -1579,7 +1881,7 @@ def fit_real(torch, eager, root: str) -> tuple:
     if not same or n_streamed != n_train or train.data.shape != (n_train, 256, 256, 3):
         raise AssertionError("stream_batches disagrees with load")
 
-    featurizer = Pipeline(eager["scored"].stages[:-1])
+    featurizer = FusedTransformer(eager["scored"].serving_chain().stages[:-1])
     rates = {}
     for name, batches in (
         ("decoded images (host arrays, pinned staging)", lambda: BatchIterator.from_arrays(train.data, train.labels, 256)),
@@ -1622,7 +1924,7 @@ def fit_real(torch, eager, root: str) -> tuple:
         launches = fvo.LAUNCHES  # and ends here
     secs = timer.seconds()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    head = fitted["scored"].stages[-1]
+    head = fitted["scored"].transformers()[-1]
     print(f"run_streamed on the JPEGs: {out['summary']}; feature dim {out['feature_dim']}, {fitted['num_classes']} "
           f"classes, featurizer sample {fitted['sample']}, head W {tuple(head.W.shape)}; {out['seconds']:.3f} s "
           f"(host clock)")
@@ -1796,8 +2098,10 @@ def voc_pipeline(torch, fvo, device="cuda", counts=VOC_COUNTS) -> dict:
     if not out["map"] >= VOC_MAP_MIN:
         raise AssertionError(f"VOC mAP {out['map']} below {VOC_MAP_MIN}")
     n = min(1024, counts[1])
-    with_plain_fv(scored, FisherVector, fvo, nn)
-    plain = voc.scores(scored, test.data[:n], device)
+    # A copy of the fitted chain, its Fisher vector swapped for the plain
+    # version (the pipeline's own modules stay as they are).
+    plain_chain = with_plain_fv(copy.deepcopy(scored.serving_chain()), FisherVector, fvo, nn)
+    plain = voc.scores(plain_chain.to_pipeline(), test.data[:n], device)
     within({"test scores through the plain Fisher vector (rel. to max)":
             (rel_to_max(torch, test_scores[:n], plain), SCORE_RTOL)}, f"voc, kernel against plain, {n} test images")
     return {"launches": launches, "map": out["map"], "seconds": out["seconds"]}
@@ -1854,7 +2158,7 @@ def mnist_pipeline(torch, root: str, device="cuda", counts=MNIST_COUNTS, reduced
     print(f"mnist_random_fft stages (s, CUDA events): {stages_line(timer)}")
 
     train, test = MnistLoader.load(paths["train"]), MnistLoader.load(paths["t10k"])
-    featurizer = mnist.build_featurizer(conf, 784, device=device)
+    featurizer = mnist.build_featurizer(conf, 784, device=device).serving_chain()
     with torch.inference_mode():
         A = featurizer.apply_in_batches(train.data, batch_size=4096, device=device)
         F_test = featurizer.apply_in_batches(test.data, batch_size=4096, device=device)
@@ -1890,7 +2194,7 @@ def mnist_pipeline(torch, root: str, device="cuda", counts=MNIST_COUNTS, reduced
         featurizer = mnist.build_featurizer(rconf, 784, device=dev)
         pipe = mnist.build_pipeline(rconf, train.data, train.labels, dev, featurizer=featurizer)
         with torch.inference_mode():
-            feats[dev] = featurizer(torch.from_numpy(test.data).to(dev)).cpu()
+            feats[dev] = featurizer.serving_chain()(torch.from_numpy(test.data).to(dev)).cpu()
         errs[dev] = float((mnist.predict(pipe, test.data, dev) != test.labels).mean())
     within({"test features (rel. to max)": (rel_to_max(torch, feats[device], feats["cpu"]), MNIST_FEATURE_RTOL),
             "test error (abs)": (abs(errs[device] - errs["cpu"]), FIT_ERROR_TOL)},
@@ -1938,7 +2242,7 @@ def cifar_pipelines(torch, root: str, device="cuda", counts=CIFAR_COUNTS, reduce
     from keystone_tpu_torch.pipelines.images import linear_pixels as lp
     from keystone_tpu_torch.pipelines.images import random_patch_cifar as rpc
     from keystone_tpu_torch.utils.stages import StageTimer
-    from keystone_tpu_torch.workflow import Pipeline
+    from keystone_tpu_torch.workflow import FusedTransformer
 
     t0 = time.perf_counter()
     paths = cifar_files(np, root, counts)
@@ -1966,7 +2270,8 @@ def cifar_pipelines(torch, root: str, device="cuda", counts=CIFAR_COUNTS, reduce
     for dev in (device, "cpu"):
         pipe = rpc.fit(rconf, train.data, train.labels, dev)
         with torch.inference_mode():
-            feats[dev] = Pipeline(list(pipe.stages)[:-2])(torch.from_numpy(test.data).to(dev)).cpu()
+            feats[dev] = FusedTransformer(list(pipe.serving_chain().stages)[:-2])(
+                torch.from_numpy(test.data).to(dev)).cpu()
         errs[dev] = float((rpc.predict(pipe, test.data, dev) != test.labels).mean())
     within({"test features (rel. to max)": (rel_to_max(torch, feats[device], feats["cpu"]), CIFAR_FEATURE_RTOL),
             "test error (abs)": (abs(errs[device] - errs["cpu"]), FIT_ERROR_TOL)},
@@ -2438,7 +2743,7 @@ def least_squares_full(torch, np, streamed, device) -> None:
     train, _ = MnistLoader.synthetic(n=MNIST_COUNTS[0])
     conf = mnist.MnistRandomFFTConfig()
     with torch.inference_mode():
-        featurizer = mnist.build_featurizer(conf, 784, device=device)
+        featurizer = mnist.build_featurizer(conf, 784, device=device).serving_chain()
         A = featurizer.apply_in_batches(train.data, batch_size=4096, device=device)
         Y = ClassLabelIndicators(conf.num_classes)(torch.as_tensor(train.labels).to(device))
     cases.append((f"MNIST features {A.shape[0]} x {A.shape[1]}", A, Y, "normal"))
@@ -2771,6 +3076,11 @@ def main() -> int:
     print(f"data: {len(train.data)} training and {len(test.data)} test images of "
           f"{train.data.shape[1:]} over 1000 classes, made in {time.perf_counter() - t0:.3f} s (host)")
     fitted = fit_full(torch, train, test)
+    fitted["train"] = train
+
+    phase("workflow")
+    print(gpu_name_and_limit())
+    workflow_launches = workflow(torch, np, fvo, fitted, test)
 
     phase("serve, precision ladder")
     serve_precisions(torch, fitted, test)
@@ -2818,13 +3128,15 @@ def main() -> int:
         "source": "keystone_tpu_torch/csrc/fisher_vector.cu",
         "replaces": "keystone_tpu/ops/fisher_vector_pallas.py:108",
         "launches": (served["launches"] + served["service_launches"] + fitted["launches"]
-                     + fitted["served_launches"] + sum(streamed["launches"].values()) + real_launches
+                     + fitted["served_launches"] + workflow_launches + sum(streamed["launches"].values())
+                     + real_launches
                      + voc["launches"] + sum(suite_launches.values())),
         "launches_by_path": {
             "serve, graphs": served["launches"],
             "service": served["service_launches"],
             "fit": fitted["launches"],
             "serve fitted": fitted["served_launches"],
+            "workflow": workflow_launches,
             **streamed["launches"],
             "fit streamed, real data": real_launches,
             "voc": voc["launches"],

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -38,6 +39,9 @@ NVCC_FLAGS = (
 # shared memory, spills), by source name.
 BUILD_LOGS: dict = {}
 _libraries: dict = {}
+# Held while a library is built and loaded: two threads that reach a kernel
+# at once (the executor's parallel walk) build it once.
+_library_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -192,7 +196,10 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libraries.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _libraries[name] = lib
+        with _library_lock:
+            lib = _libraries.get(name)
+            if lib is None:
+                build((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                _libraries[name] = lib
     return lib

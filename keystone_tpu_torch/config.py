@@ -28,7 +28,13 @@ imported: the bucket ladder, its top, the serving precision, the replica
 pool's width, the in-flight window, the pending-queue bound, the default
 deadline and the planner switch. ``text_sparse_threshold`` is the
 reference's (``:357``), a plain field; ``kernel_block_bytes`` is the port's
-own (the reference's kernel rows come a device's row shard at a time). ``resolved_serve_buckets`` reads
+own (the reference's kernel rows come a device's row shard at a time). The
+workflow knobs are the reference's (``:303-361``, ``:417``):
+``exec_workers`` (``KEYSTONE_EXEC_WORKERS``, the parallel walk's pool),
+``auto_cache`` (the auto-cache rule), ``fingerprint_max_bytes``,
+``cache_dir`` (the disk fit cache; ``KEYSTONE_CACHE_DIR`` wins, read live
+by ``resolved_cache_dir``) and ``fuse_chains`` (``KEYSTONE_NO_FUSE``).
+``resolved_serve_buckets`` reads
 ``KEYSTONE_SERVE_BUCKETS`` live, so an exported ladder pins the engine's
 even when exported after import. The fault-injection knobs of
 ``utils/reliability.py`` live here too (the reference's ``:360-389``).
@@ -198,9 +204,46 @@ class Config:
     # (K + λI)v takes K's rows in chunks of at most this many float32
     # bytes, so the n×n matrix is never formed (``kernel_ridge.py``).
     kernel_block_bytes: int = 1 << 30
+    # Worker threads of the executor's parallel walk (workflow/executor.py
+    # _ParallelWalk); 0 = the serial walk. Outputs are bit-equal at any
+    # count. Env: KEYSTONE_EXEC_WORKERS, read live by resolved_exec_workers.
+    exec_workers: int = field(default_factory=lambda: _env_int("KEYSTONE_EXEC_WORKERS", 0))
+    # Whether the optimizer's auto-cache rule profiles a sample run and
+    # inserts cache nodes (workflow/rules.py AutoCacheRule).
+    auto_cache: bool = False
+    # Arrays and tensors above this size are fingerprinted from a sample
+    # of chunks, not in full (workflow/fingerprint.py).
+    fingerprint_max_bytes: int = 128 << 20
+    # Directory of the cross-process fitted-prefix store (None = off);
+    # KEYSTONE_CACHE_DIR, when exported, wins (resolved_cache_dir).
+    cache_dir: Optional[str] = None
+    # Whether the optimizer fuses chains of device transformers into one
+    # module (workflow/optimizer.py ChainFusionRule). KEYSTONE_NO_FUSE set
+    # to anything but "", "0", "false" or "no" turns it off.
+    fuse_chains: bool = field(
+        default_factory=lambda: os.environ.get("KEYSTONE_NO_FUSE", "").strip().lower()
+        in ("", "0", "false", "no")
+    )
 
 
 config = Config()
+
+
+def resolved_cache_dir() -> Optional[str]:
+    """The disk fit cache's directory: ``KEYSTONE_CACHE_DIR`` when it is
+    exported (an empty value turns the store off), else
+    ``config.cache_dir``."""
+    if "KEYSTONE_CACHE_DIR" in os.environ:
+        return os.environ["KEYSTONE_CACHE_DIR"] or None
+    return config.cache_dir
+
+
+def resolved_exec_workers() -> int:
+    """The parallel walk's worker count: ``KEYSTONE_EXEC_WORKERS`` when it
+    is exported, read live, else ``config.exec_workers``."""
+    if "KEYSTONE_EXEC_WORKERS" in os.environ:
+        return _env_int("KEYSTONE_EXEC_WORKERS", 0)
+    return config.exec_workers
 
 
 def resolve_device(device=None) -> torch.device:

@@ -145,17 +145,26 @@ def vectorizer_from_index(index, sparse="auto") -> SparseFeatureVectorizer:
 
 
 def params_to_numpy(pipeline) -> dict:
-    """The keys above, as numpy arrays, from a fitted pipeline whose first
-    stages are the gathered branches (``sift`` then ``lcs``, each holding
-    one ``PCATransformer`` and one ``FisherVector``) and the head: what
-    ``fit_head`` returns, or a serving pipeline."""
-    gather, head = pipeline.stages[0], pipeline.stages[1]
-    if not isinstance(head, BlockLinearMapper) or len(gather.branches) != len(BRANCHES):
+    """The keys above, as numpy arrays, from a fitted pipeline of the
+    gathered branches (``sift`` then ``lcs``, each holding one
+    ``PCATransformer`` and one ``FisherVector``) and the head: what
+    ``fit_head`` returns, or a serving pipeline. A ``Pipeline`` is read
+    through its serving chain; a ``FusedTransformer`` of those stages is
+    read as it is."""
+    from keystone_tpu_torch.workflow.pipeline import GatherTransformer, Pipeline
+
+    chain = pipeline.serving_chain() if isinstance(pipeline, Pipeline) else pipeline
+    stages = list(getattr(chain, "stages", [chain]))
+    if len(stages) < 2 or not isinstance(stages[0], GatherTransformer) or not isinstance(
+        stages[1], BlockLinearMapper
+    ) or len(stages[0].branches) != len(BRANCHES):
         raise ValueError("want a pipeline of [gather of the two branches, BlockLinearMapper, ...]")
+    gather, head = stages[0], stages[1]
     d = {}
     for br, branch in zip(BRANCHES, gather.branches):
-        (pca,) = [s for s in branch.stages if isinstance(s, PCATransformer)]
-        (fv,) = [s for s in branch.stages if isinstance(s, FisherVector)]
+        parts = list(getattr(branch, "stages", [branch]))
+        (pca,) = [s for s in parts if isinstance(s, PCATransformer)]
+        (fv,) = [s for s in parts if isinstance(s, FisherVector)]
         d[f"{br}.pca.components"] = pca.components
         if pca.mean is not None:
             d[f"{br}.pca.mean"] = pca.mean

@@ -44,6 +44,9 @@ class LCSExtractor(Transformer):
         self.bin_size = bin_size
         self.eps = eps
 
+    def signature(self):
+        return self.stable_signature(self.step, self.bin_size, self.eps)
+
     def num_keypoints(self, h: int, w: int) -> int:
         span = _CELLS * self.bin_size
         nx = (w - span) // self.step + 1 if w >= span else 0

@@ -8,6 +8,9 @@ from keystone_tpu_torch.workflow import Transformer
 
 
 class GrayScaler(Transformer):
+    def signature(self):
+        return self.stable_signature()
+
     def apply_batch(self, X):
         return grayscale(X)
 
@@ -19,12 +22,18 @@ class PixelScaler(Transformer):
         super().__init__()
         self.scale = scale
 
+    def signature(self):
+        return self.stable_signature(self.scale)
+
     def apply_batch(self, X):
         return X / self.scale
 
 
 class ImageVectorizer(Transformer):
     """NHWC → (N, H·W·C) rows."""
+
+    def signature(self):
+        return self.stable_signature()
 
     def apply_batch(self, X):
         return X.reshape(X.shape[0], -1)

@@ -17,6 +17,9 @@ class SymmetricRectifier(Transformer):
         self.alpha = alpha
         self.max_val = max_val
 
+    def signature(self):
+        return self.stable_signature(self.alpha, self.max_val)
+
     def apply_batch(self, X):
         pos = torch.clamp_min(X - self.alpha, self.max_val)
         neg = torch.clamp_min(-X - self.alpha, self.max_val)
@@ -34,6 +37,9 @@ class Pooler(Transformer):
         self.stride = stride
         self.pool_size = pool_size
         self.mode = mode
+
+    def signature(self):
+        return self.stable_signature(self.stride, self.pool_size, self.mode)
 
     def apply_batch(self, X):
         p, s = self.pool_size, self.stride

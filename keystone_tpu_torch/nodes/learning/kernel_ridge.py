@@ -157,6 +157,9 @@ class KernelRidgeRegression(LabelEstimator):
     directly (``_fit_dense``). Fits on the device of a tensor it is given;
     host arrays go to ``device`` (``cuda`` unless named)."""
 
+    # Set by each fit: an outcome, not a hyperparameter.
+    _signature_exclude = ("last_cg_iters",)
+
     def __init__(
         self,
         kernel: KernelGenerator | None = None,

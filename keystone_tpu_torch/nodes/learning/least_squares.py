@@ -56,6 +56,9 @@ class LeastSquaresEstimator(LabelEstimator):
     unless named). ``num_iters`` and ``block_size`` apply only to the block
     solver."""
 
+    # Set by each dispatch: an outcome, not a hyperparameter of the fit.
+    _signature_exclude = ("last_choice",)
+
     def __init__(self, lam: float = 0.0, block_size: int = 4096, num_iters: int = 3,
                  hbm_budget_bytes: int | None = None, device=None):
         self.lam = lam

@@ -24,6 +24,17 @@ class PCATransformer(Transformer):
             else torch.as_tensor(mean, dtype=default_dtype, device=device),
         )
 
+    def signature(self):
+        # Content-stable from the fitted parameters, so prefixes through a
+        # fitted PCA stay persistable; fingerprinted once (memoized on the
+        # buffers, re-read only if one is written in place).
+        from keystone_tpu_torch.workflow.fingerprint import array_fingerprint
+
+        return self.stable_signature(
+            array_fingerprint(self.components),
+            None if self.mean is None else array_fingerprint(self.mean),
+        )
+
     def apply_batch(self, X):
         if self.mean is not None:
             X = X - self.mean

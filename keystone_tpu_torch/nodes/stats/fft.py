@@ -22,6 +22,9 @@ def _next_pow2(n: int) -> int:
 
 
 class PaddedFFT(Transformer):
+    def signature(self):
+        return self.stable_signature()
+
     def apply_batch(self, X):
         n = _next_pow2(X.shape[-1])
         spec = torch.fft.rfft(F.pad(X, (0, n - X.shape[-1])), dim=-1) / math.sqrt(n)

@@ -9,5 +9,8 @@ from keystone_tpu_torch.workflow import Transformer
 
 
 class SignedHellingerMapper(Transformer):
+    def signature(self):
+        return self.stable_signature()
+
     def apply_batch(self, X):
         return torch.sign(X) * torch.sqrt(torch.abs(X))

@@ -12,6 +12,9 @@ class L2Normalizer(Transformer):
         super().__init__()
         self.eps = eps
 
+    def signature(self):
+        return self.stable_signature(self.eps)
+
     def apply_batch(self, X):
         norm = torch.linalg.vector_norm(X, dim=-1, keepdim=True)
         return X / torch.clamp_min(norm, self.eps)

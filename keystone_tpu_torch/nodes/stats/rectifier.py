@@ -15,5 +15,8 @@ class LinearRectifier(Transformer):
         self.max_val = max_val
         self.alpha = alpha
 
+    def signature(self):
+        return self.stable_signature(self.max_val, self.alpha)
+
     def apply_batch(self, X):
         return torch.clamp_min(X - self.alpha, self.max_val)

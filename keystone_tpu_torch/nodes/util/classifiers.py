@@ -13,6 +13,9 @@ class MaxClassifier(Transformer):
     """The index of the largest score, as int32 (the first on a tie, as
     ``jnp.argmax``)."""
 
+    def signature(self):
+        return self.stable_signature()
+
     def apply_batch(self, scores):
         return torch.argmax(scores, dim=-1).to(torch.int32)
 
@@ -24,6 +27,9 @@ class TopKClassifier(Transformer):
     def __init__(self, k: int):
         super().__init__()
         self.k = k
+
+    def signature(self):
+        return self.stable_signature(self.k)
 
     def apply_batch(self, scores):
         return torch.topk(scores, self.k, dim=-1, largest=True, sorted=True).indices.to(

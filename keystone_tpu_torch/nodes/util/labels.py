@@ -15,6 +15,9 @@ class ClassLabelIndicators(Transformer):
         super().__init__()
         self.num_classes = num_classes
 
+    def signature(self):
+        return self.stable_signature(self.num_classes)
+
     def apply_batch(self, y):
         y = y.to(torch.int64)
         onehot = torch.nn.functional.one_hot(y, self.num_classes).to(default_dtype)

@@ -1,8 +1,8 @@
 """Small utility nodes (counterpart of ``keystone_tpu/nodes/util/misc.py``):
 ``Identity``, ``Cast``, ``VectorSplitter`` and ``VectorCombiner`` on
 tensors; ``Densify`` and ``Sparsify``, host stages between (index → value)
-maps and dense float32 numpy rows. ``Cacher`` waits for the workflow
-caches."""
+maps and dense float32 numpy rows; ``Cacher``, whose composition persists
+the value in the session cache like ``Pipeline.cache()``."""
 
 from __future__ import annotations
 
@@ -15,6 +15,27 @@ from keystone_tpu_torch.workflow import Transformer
 
 
 class Identity(Transformer):
+    def signature(self):
+        return self.stable_signature()
+
+    def apply_batch(self, X):
+        return X
+
+
+class Cacher(Transformer):
+    """The reference's Cacher node: composing ``pipeline.and_then(Cacher())``
+    persists the value in the session cache exactly like
+    ``pipeline.cache()``. Called directly on a batch it is the identity."""
+
+    def to_pipeline(self):
+        from keystone_tpu_torch.workflow.cache import CacheOperator
+        from keystone_tpu_torch.workflow.graph import Graph, fresh_source_id
+        from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+        source = fresh_source_id()
+        graph, nid = Graph().add(CacheOperator(), [source])
+        return Pipeline(graph, source, nid)
+
     def apply_batch(self, X):
         return X
 

@@ -22,6 +22,13 @@ launches nothing: it adds one to the capturing thread's
 holds, and each replay of that graph adds them to ``LAUNCHES`` through
 ``count_replay``, so a replayed bucket counts its two launches (partial
 sums and reduce of each branch's call) as an eager call does.
+
+``counting_flops`` is how ``torch.utils.flop_counter.FlopCounterMode``
+sees this op (the workflow profiler's FLOP count): inside it, a call adds
+``fisher_vector_flops`` to the scope's count and runs with the dispatch
+modes off, so the count is the same formula on both devices, whether the
+kernel (which the counter cannot see) or the plain version (whose own
+products it would count) does the work.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from keystone_tpu_torch import build
 from keystone_tpu_torch.ops.fv_common import fv_constants
@@ -146,8 +155,41 @@ def fisher_vectors_plain(X, weights, means, variances) -> torch.Tensor:
     ).to(torch.float32)
 
 
+_flop_scope = threading.local()
+
+
+def fisher_vector_flops(B: int, m: int, d: int, k: int) -> int:
+    """Floating-point operations of one call: the logits' product (2·B·m·k·d)
+    and the centred statistics, five per term (5·B·m·k·d)."""
+    return 7 * B * m * k * d
+
+
+@contextmanager
+def counting_flops():
+    """Within the block, each call of ``fisher_vectors`` on this thread adds
+    its ``fisher_vector_flops`` to the yielded one-item list and hides its
+    own operations from any dispatch mode (a ``FlopCounterMode``)."""
+    prior = getattr(_flop_scope, "acc", None)
+    acc = [0]
+    _flop_scope.acc = acc
+    try:
+        yield acc
+    finally:
+        _flop_scope.acc = prior
+
+
 def fisher_vectors(X: torch.Tensor, ops: FVOperands) -> torch.Tensor:
     """(B, m, d) descriptor sets → (B, 2·k·d) raw Fisher vectors."""
+    acc = getattr(_flop_scope, "acc", None)
+    if acc is not None:
+        B, m, d = X.shape
+        acc[0] += fisher_vector_flops(B, m, d, ops.means.shape[0])
+        with _disable_current_modes():
+            return _fisher_vectors(X, ops)
+    return _fisher_vectors(X, ops)
+
+
+def _fisher_vectors(X: torch.Tensor, ops: FVOperands) -> torch.Tensor:
     if X.device.type == "cpu":
         return fisher_vectors_plain(X, ops.weights, ops.means, ops.variances)
     if X.device.type != "cuda":
@@ -155,9 +197,15 @@ def fisher_vectors(X: torch.Tensor, ops: FVOperands) -> torch.Tensor:
     return _fisher_vectors_cuda(X, ops)
 
 
+_library_ready = False
+
+
 def _library() -> ctypes.CDLL:
+    global _library_ready
     lib = build.library("fisher_vector")
-    if lib.keystone_fv_encode.argtypes is None:
+    if _library_ready:
+        return lib
+    with _count_lock:
         lib.keystone_fv_encode.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p
         ]
@@ -167,6 +215,7 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.keystone_fv_resident_blocks.argtypes = [ctypes.c_int]
         lib.keystone_fv_resident_blocks.restype = ctypes.c_int
+        _library_ready = True
     return lib
 
 

@@ -11,7 +11,12 @@ Fitting (the reference's ``run``) goes in two steps:
   the training images (branch seeds ``seed`` and ``seed + 1``);
 - ``fit_head``: the class-weighted block least-squares head on the
   training set's features, through ``Pipeline.and_then(estimator, data,
-  labels)``.
+  labels)``, fitted by the graph executor (``workflow/executor.py``): the
+  optimizer fuses the gathered branches into one module that the walk
+  applies to the training images in batches of ``FIT_BATCH``.
+
+Every entry point runs its graph walks on its ``device`` argument
+(``workflow.on_device``) and returns fitted pipelines.
 
 ``run`` fits on the training images and scores the test split;
 ``evaluate`` gives its top-k and top-1 errors. The images are synthetic,
@@ -75,7 +80,7 @@ from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.nodes.util.classifiers import TopKClassifier
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
 from keystone_tpu_torch.utils.stages import mark
-from keystone_tpu_torch.workflow import Pipeline, Transformer
+from keystone_tpu_torch.workflow import FusedTransformer, Pipeline, Transformer, on_device
 from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
 # Feature block width of the head: the reference's resolve_block_size cap on
@@ -146,7 +151,7 @@ def _fronts(conf: ImageNetSiftLcsFVConfig):
         "sift": GrayScaler().and_then(
             SIFTExtractor(step=conf.sift_step, bin_size=conf.sift_bin)
         ),
-        "lcs": Pipeline([LCSExtractor(step=conf.lcs_step, bin_size=conf.lcs_bin)]),
+        "lcs": LCSExtractor(step=conf.lcs_step, bin_size=conf.lcs_bin).to_pipeline(),
     }
 
 
@@ -165,8 +170,9 @@ def build_featurizer(params: ServingParams, conf: ImageNetSiftLcsFVConfig) -> Pi
 
 
 def build_serving_pipeline(params: ServingParams, conf: ImageNetSiftLcsFVConfig) -> Pipeline:
-    """images → top-k class indices (int32, best first). Its stages are
-    ``[gather, head, top-k]``, so ``Pipeline(p.stages[:-1])`` gives scores."""
+    """images → top-k class indices (int32, best first); without the last
+    ``and_then``, ``build_featurizer(...).and_then(params.head)`` gives
+    scores."""
     return (
         build_featurizer(params, conf)
         .and_then(params.head)
@@ -200,8 +206,8 @@ def seeded_params(
     images = torch.from_numpy(train.data).to(device)
     d = {}
     for br, front in _fronts(conf).items():
-        with torch.inference_mode():
-            descs = front(images).reshape(-1, 128 if br == "sift" else 96).cpu()
+        with torch.inference_mode(), on_device(device):
+            descs = front(images).get().reshape(-1, 128 if br == "sift" else 96).cpu()
         mean = descs.mean(dim=0)
         comps, _ = torch.linalg.qr(torch.randn(descs.shape[1], pca_dims, generator=g))
         proj = (descs - mean) @ comps
@@ -229,20 +235,23 @@ def fit_featurizer(conf: ImageNetSiftLcsFVConfig, train_images, device=None) -> 
     reference's ``build_featurizer(conf, train_images)``)."""
     conf = resolve_scale(conf)
     fronts = _fronts(conf)
-    return Pipeline.gather([
-        fit_fisher_featurizer(
-            fronts[br], train_images,
-            pca_dims=conf.pca_dims, gmm_k=conf.gmm_k, em_iters=conf.gmm_iters,
-            sample_size=conf.descriptor_sample, seed=seed, device=device,
-        )
-        for br, seed in (("sift", conf.seed), ("lcs", conf.seed + 1))
-    ])
+    with on_device(device):
+        return Pipeline.gather([
+            fit_fisher_featurizer(
+                fronts[br], train_images,
+                pca_dims=conf.pca_dims, gmm_k=conf.gmm_k, em_iters=conf.gmm_iters,
+                sample_size=conf.descriptor_sample, seed=seed, device=device,
+            )
+            for br, seed in (("sift", conf.seed), ("lcs", conf.seed + 1))
+        ])
 
 
 def fit_head(featurizer: Pipeline, conf: ImageNetSiftLcsFVConfig, train_images,
              train_labels, num_classes: int, device=None) -> Pipeline:
     """``featurizer`` followed by the head fitted on its features of the
-    training images: a pipeline from images to (n, num_classes) scores."""
+    training images: a fitted pipeline from images to (n, num_classes)
+    scores. The head's fit is the graph's: ``and_then(solver, images,
+    targets)``, forced by ``fit()``."""
     conf = resolve_scale(conf)
     device = resolve_device(device)
     targets = ClassLabelIndicators(num_classes)(torch.as_tensor(train_labels).to(device))
@@ -253,7 +262,8 @@ def fit_head(featurizer: Pipeline, conf: ImageNetSiftLcsFVConfig, train_images,
         mixture_weight=conf.mixture_weight,
         checkpoint_dir=conf.checkpoint_dir,
     )
-    return featurizer.and_then(solver, train_images, targets, device=device)
+    with on_device(device):
+        return featurizer.and_then(solver, train_images, targets).fit()
 
 
 def fit(conf: ImageNetSiftLcsFVConfig, train: LabeledData, num_classes: int,
@@ -275,13 +285,13 @@ def _errors(topk: np.ndarray, labels: np.ndarray):
 def evaluate(scored: Pipeline, conf: ImageNetSiftLcsFVConfig, test: LabeledData, device=None):
     """(top-k error, top-1 error) of ``scored`` on ``test``, with the views
     of ``build_tta`` averaged when ``conf.augment``."""
-    with torch.inference_mode():
+    with torch.inference_mode(), on_device(device):
         if conf.augment:
             patcher, averager = build_tta(conf, test.data.shape[1])
-            views = scored.apply_in_batches(patcher(torch.as_tensor(test.data)), device=device)
+            views = scored(patcher(torch.as_tensor(test.data))).get()
             scores = averager.average_scores(views)
         else:
-            scores = scored.apply_in_batches(test.data, device=device)
+            scores = scored(test.data).get()
         topk = TopKClassifier(conf.top_k)(scores).cpu().numpy()
     return _errors(topk, test.labels)
 
@@ -297,12 +307,14 @@ def build_tta(conf: ImageNetSiftLcsFVConfig, side: int):
 class ViewAveragedScores(Transformer):
     """images → each image's scores averaged over the patcher's views,
     computed ``images_at_once`` images (their views) at a time so that the
-    view tensor stays bounded. Each image's output depends on it alone."""
+    view tensor stays bounded. Each image's output depends on it alone.
+    ``scored`` is a module, or a pipeline, then lowered to its serving
+    chain."""
 
-    def __init__(self, scored: Pipeline, patcher: CenterCornerPatcher,
+    def __init__(self, scored, patcher: CenterCornerPatcher,
                  averager: AugmentedExamplesEvaluator, images_at_once: int):
         super().__init__()
-        self.scored = scored
+        self.scored = scored.serving_chain() if isinstance(scored, Pipeline) else scored
         self.patcher = patcher
         self.averager = averager
         self.images_at_once = images_at_once
@@ -325,8 +337,8 @@ def fit_streamed(conf: ImageNetSiftLcsFVConfig, fit_sample, train_batches, num_c
     device = resolve_device(device)
     featurizer = fit_featurizer(conf, fit_sample, device)
     feats, labels = [], []
-    with torch.inference_mode():
-        for F, y in featurizer.apply_batches(train_batches, device=device):
+    with torch.inference_mode(), on_device(device):
+        for F, y in featurizer.apply_batches(train_batches):
             if y is None:
                 raise ValueError("the training stream must give (images, labels) batches")
             feats.append(F.cpu().numpy())
@@ -379,7 +391,8 @@ def score_streamed(scored: Pipeline, conf: ImageNetSiftLcsFVConfig, test_batches
     ``max(1, stream_batch // views)`` images at a time."""
     device = resolve_device(device)
     if not conf.augment:
-        featurizer, head = Pipeline(list(scored.stages)[:-1]), scored.stages[-1]
+        chain = scored.serving_chain()
+        featurizer, head = FusedTransformer(list(chain.stages)[:-1]), chain.stages[-1]
         engine = _scoring_engine(head, conf.stream_batch, device)
         scores, labels = [], []
         with torch.inference_mode():

@@ -26,6 +26,7 @@ from keystone_tpu_torch.nodes.learning.linear_mapper import LinearMapEstimator
 from keystone_tpu_torch.nodes.util.classifiers import MaxClassifier
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
 from keystone_tpu_torch.utils.stages import mark
+from keystone_tpu_torch.workflow import on_device
 
 
 @dataclass
@@ -42,9 +43,10 @@ def fit(conf: LinearPixelsConfig, train_images, train_labels, device=None):
     device = resolve_device(device)
     images = torch.as_tensor(train_images).to(device)
     targets = ClassLabelIndicators(conf.num_classes)(torch.as_tensor(train_labels).to(device))
-    return GrayScaler().and_then(ImageVectorizer()).and_then(
-        LinearMapEstimator(lam=conf.lam), images, targets, device=device
-    ).and_then(MaxClassifier())
+    with on_device(device):
+        return GrayScaler().and_then(ImageVectorizer()).and_then(
+            LinearMapEstimator(lam=conf.lam), images, targets
+        ).and_then(MaxClassifier()).fit()
 
 
 def run(conf: LinearPixelsConfig, device=None) -> dict:
@@ -60,8 +62,8 @@ def run(conf: LinearPixelsConfig, device=None) -> dict:
 
     t0 = time.perf_counter()
     pipeline = fit(conf, train.data, train.labels, device)
-    with torch.inference_mode():
-        predictions = pipeline.apply_in_batches(test.data, device=device).cpu().numpy()
+    with torch.inference_mode(), on_device(device):
+        predictions = pipeline(test.data).get().cpu().numpy()
     mark("predicting the test images")
     elapsed = time.perf_counter() - t0
 

@@ -41,7 +41,7 @@ from keystone_tpu_torch.nodes.stats.rectifier import LinearRectifier
 from keystone_tpu_torch.nodes.util.classifiers import MaxClassifier
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
 from keystone_tpu_torch.utils.stages import mark
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import Pipeline, on_device
 
 
 @dataclass
@@ -76,15 +76,16 @@ def build_pipeline(conf: MnistRandomFFTConfig, train, train_labels, device=None,
     device = resolve_device(device)
     featurizer = featurizer or build_featurizer(conf, train.shape[1], device=device)
     targets = ClassLabelIndicators(conf.num_classes)(torch.as_tensor(train_labels).to(device))
-    return featurizer.and_then(
-        LinearMapEstimator(lam=conf.lam), train, targets, device=device
-    ).and_then(MaxClassifier())
+    with on_device(device):
+        return featurizer.and_then(LinearMapEstimator(lam=conf.lam), train, targets).and_then(
+            MaxClassifier()
+        ).fit()
 
 
 def predict(pipeline: Pipeline, rows, device=None):
-    """``pipeline`` on host rows in batches on ``device``, as numpy."""
-    with torch.inference_mode():
-        return pipeline.apply_in_batches(rows, device=device).cpu().numpy()
+    """``pipeline`` on host rows (in batches) on ``device``, as numpy."""
+    with torch.inference_mode(), on_device(device):
+        return pipeline(rows).get().cpu().numpy()
 
 
 def run(conf: MnistRandomFFTConfig, device=None) -> dict:

@@ -43,7 +43,7 @@ from keystone_tpu_torch.nodes.learning.zca import ZCAWhitenerEstimator
 from keystone_tpu_torch.nodes.util.classifiers import MaxClassifier
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
 from keystone_tpu_torch.utils.stages import mark
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import Pipeline, on_device
 
 
 @dataclass
@@ -105,13 +105,14 @@ def fit(conf: RandomPatchCifarConfig, train_images, train_labels, device=None) -
     featurizer = build_featurizer(conf, images, device)
     targets = ClassLabelIndicators(conf.num_classes)(torch.as_tensor(train_labels).to(device))
     solver = BlockLeastSquaresEstimator(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam)
-    return featurizer.and_then(solver, images, targets, device=device).and_then(MaxClassifier())
+    with on_device(device):
+        return featurizer.and_then(solver, images, targets).and_then(MaxClassifier()).fit()
 
 
 def predict(pipeline: Pipeline, images, device=None):
-    """``pipeline`` on host images in batches on ``device``, as numpy."""
-    with torch.inference_mode():
-        return pipeline.apply_in_batches(images, device=device).cpu().numpy()
+    """``pipeline`` on host images (in batches) on ``device``, as numpy."""
+    with torch.inference_mode(), on_device(device):
+        return pipeline(images).get().cpu().numpy()
 
 
 def run(conf: RandomPatchCifarConfig, device=None) -> dict:

@@ -49,7 +49,7 @@ from keystone_tpu_torch.nodes.learning.block_least_squares import BlockLeastSqua
 from keystone_tpu_torch.nodes.stats.hellinger import SignedHellingerMapper
 from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.utils.stages import mark
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import Pipeline, on_device
 
 
 @dataclass
@@ -119,13 +119,14 @@ def fit(conf: VOCSIFTFisherConfig, train: LabeledData, device=None) -> Pipeline:
     featurizer = build_featurizer(conf, images, device)
     targets = 2.0 * torch.as_tensor(train.labels, dtype=torch.float32, device=device) - 1.0
     solver = BlockLeastSquaresEstimator(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam)
-    return featurizer.and_then(solver, images, targets, device=device)
+    with on_device(device):
+        return featurizer.and_then(solver, images, targets).fit()
 
 
 def scores(scored: Pipeline, images, device=None) -> np.ndarray:
-    """``scored`` applied to host images in batches on ``device``."""
-    with torch.inference_mode():
-        return scored.apply_in_batches(images, device=device).cpu().numpy()
+    """``scored`` applied to host images (in batches) on ``device``."""
+    with torch.inference_mode(), on_device(device):
+        return scored(images).get().cpu().numpy()
 
 
 def load(conf: VOCSIFTFisherConfig):

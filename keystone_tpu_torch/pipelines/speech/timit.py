@@ -39,6 +39,7 @@ from keystone_tpu_torch.nodes.stats.scalers import StandardScaler
 from keystone_tpu_torch.nodes.util.classifiers import MaxClassifier
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
 from keystone_tpu_torch.utils.stages import mark, synced_clock
+from keystone_tpu_torch.workflow import on_device
 
 
 @dataclass
@@ -81,7 +82,7 @@ def run(conf: TimitConfig, device=None, random_features: Optional[CosineRandomFe
     t0 = synced_clock(device)
     rows = torch.as_tensor(train.data).to(device)
     mark("copy of the frames to the device")
-    scaler = StandardScaler(device=device).with_data(rows)
+    scaler = StandardScaler(device=device).fit_pipeline(rows)
     mark("scaler")
     rf = random_features or CosineRandomFeatures.create(
         input_dim=rows.shape[1],
@@ -92,15 +93,15 @@ def run(conf: TimitConfig, device=None, random_features: Optional[CosineRandomFe
         device=device,
     )
     targets = ClassLabelIndicators(num_phones)(torch.as_tensor(train.labels).to(device))
-    pipeline = scaler.and_then(rf).and_then(
-        BlockLeastSquaresEstimator(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam,
-                                   device=device),
-        rows,
-        targets,
-        device=device,
-    )
-    with torch.inference_mode():
-        scores = pipeline.apply_in_batches(test.data, device=device)
+    with on_device(device):
+        pipeline = scaler.and_then(rf).and_then(
+            BlockLeastSquaresEstimator(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam,
+                                       device=device),
+            rows,
+            targets,
+        ).fit()
+    with torch.inference_mode(), on_device(device):
+        scores = pipeline(test.data).get()
         predictions = MaxClassifier()(scores).cpu().numpy()
     mark("predicting the test frames")
     elapsed = synced_clock(device) - t0

@@ -17,7 +17,7 @@ from keystone_tpu_torch.nodes.nlp import (
     Trim,
 )
 from keystone_tpu_torch.utils.stages import mark, synced_clock
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import FusedTransformer, Pipeline
 
 
 def front_end(ngrams: int) -> Pipeline:
@@ -40,15 +40,15 @@ def fit(texts, labels, ngrams: int, num_features: int, estimator, device) -> dic
     ``vectorize`` on the host, ``fit`` until the device is done."""
     t0 = time.perf_counter()
     front = front_end(ngrams)
-    term_maps = front(texts)
+    term_maps = front(texts).get()
     mark("front end, training texts")
     t1 = time.perf_counter()
-    vectorizer = CommonSparseFeatures(num_features).with_data(term_maps)
-    features = vectorizer(term_maps)
+    vectorizer = CommonSparseFeatures(num_features).fit_pipeline(term_maps)
+    features = vectorizer(term_maps).get()
     del term_maps
     mark("term index and vectorizing the training texts")
     t2 = time.perf_counter()
-    model = estimator.with_data(features, labels)
+    model = estimator.fit_pipeline(features, labels)
     mark("fit")
     t3 = synced_clock(device)
     return {
@@ -62,9 +62,9 @@ def scores(pipeline: Pipeline, texts, device) -> dict:
     """``pipeline`` (``fit``'s) on ``texts``: the ``scores`` as numpy, the
     ``features`` the model took, and the host-clock ``seconds`` of the
     front end and of the model."""
-    *host, model = pipeline.stages
+    *host, model = pipeline.transformers()
     t0 = time.perf_counter()
-    features = Pipeline(host)(texts)
+    features = FusedTransformer(host)(texts)
     mark("front end and vectorizing, test texts")
     t1 = time.perf_counter()
     out = model(features).cpu().numpy()

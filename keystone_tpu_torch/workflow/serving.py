@@ -114,7 +114,7 @@ from keystone_tpu_torch.utils.reliability import (
     WorkerDiedError,
     active_plan,
 )
-from keystone_tpu_torch.workflow.pipeline import Gather, Pipeline
+from keystone_tpu_torch.workflow.pipeline import FusedTransformer, GatherTransformer, Pipeline
 from keystone_tpu_torch.workflow.rules import (
     SERVE_LADDER_BUDGET_FRAC,
     plan_serve_ladder,
@@ -338,11 +338,11 @@ def _least_outstanding(n, cursor, outstanding, eligible=None):
 
 
 def _row_coupled_stages(module: nn.Module) -> list:
-    """Names of the stages, through pipelines and gathers, whose output
+    """Names of the stages, through fused chains and gathers, whose output
     rows depend on other rows."""
-    if isinstance(module, Pipeline):
+    if isinstance(module, FusedTransformer):
         return [bad for s in module.stages for bad in _row_coupled_stages(s)]
-    if isinstance(module, Gather):
+    if isinstance(module, GatherTransformer):
         return [bad for s in module.branches for bad in _row_coupled_stages(s)]
     return [] if getattr(module, "row_independent", True) else [type(module).__name__]
 
@@ -657,7 +657,8 @@ class _AsyncResult:
 
 
 class CompiledPipeline:
-    """A fitted pipeline (any row-independent ``nn.Module``) served
+    """A pipeline (a ``Pipeline``, fitted and lowered through
+    ``serving_chain``, or any row-independent ``nn.Module``) served
     shape-stably on a pool of replicas; see the module docstring.
 
     ``devices`` is a sequence, an int or None (``resolve_serve_devices``);
@@ -678,6 +679,10 @@ class CompiledPipeline:
         name: Optional[str] = None,
         precision: Optional[str] = None,
     ):
+        if isinstance(target, Pipeline):
+            # Fitted, optimized and lowered to the one module every bucket
+            # runs (the reference's _serving_transformer).
+            target = target.serving_chain()
         if not isinstance(target, nn.Module):
             raise TypeError(f"cannot serve a {type(target).__name__}")
         self.transformer = target.eval()

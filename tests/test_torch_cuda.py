@@ -28,6 +28,10 @@ after it; ``highest`` refuses TF32 turned on from outside. Features on the
 card over half the memory budget (patched small) are streamed from the
 host, and the head matches the CPU's streamed fit at rtol 1e-4.
 
+The workflow layer on the card: a graph walk over host images runs on the
+card and gives the fused serving chain's bits, the parallel walk the
+serial walk's, and a disk fit cache entry loads back onto the card.
+
 The serving engine captures one CUDA graph per bucket: a graphed bucket
 gives the eager chain's bits on the same padded input (the same operators
 on the same stream order), and each replay counts the two Fisher-vector
@@ -82,7 +86,7 @@ from keystone_tpu_torch.ops.sift import dense_sift
 from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
 from keystone_tpu_torch.utils.staging import HostStager
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import FusedTransformer, on_device
 from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
 pytestmark = pytest.mark.cuda
@@ -215,8 +219,9 @@ def test_small_fit_on_the_card_matches_the_cpu(cuda):
             assert np.abs(g - w).max() <= 1e-2 * np.abs(w).max(), (br, key)
     X = torch.from_numpy(test.data[:32])
     with torch.inference_mode():
-        s_card = fitted[cuda](X.to(cuda)).cpu()
-        s_cpu = fitted["cpu"](X)
+        s_card = fitted[cuda](X.to(cuda)).get().cpu()
+        with on_device("cpu"):
+            s_cpu = fitted["cpu"](X).get()
     assert (s_card - s_cpu).abs().max() <= 1e-2 * s_cpu.abs().max()
 
 
@@ -268,7 +273,7 @@ def test_a_pinned_buffer_waits_for_its_copy(cuda):
 
 def test_apply_batches_on_the_card_equals_the_cpu(cuda):
     X = np.random.default_rng(6).normal(size=(70, 9)).astype(np.float32)
-    pipe = Pipeline([L2Normalizer()])
+    pipe = FusedTransformer([L2Normalizer()])
     got = [o.cpu() for o, _ in pipe.apply_batches(BatchIterator.from_arrays(X, None, 16), device=cuda)]
     want = pipe.apply_in_batches(X, batch_size=16, device="cpu")
     torch.testing.assert_close(torch.cat(got), want, rtol=1e-5, atol=1e-6)
@@ -323,7 +328,7 @@ def _small_scorer(cuda):
     """The serving chain at gmm_k=4, pca_dims=8, 5 classes, to scores."""
     conf = port.ImageNetSiftLcsFVConfig(gmm_k=4, pca_dims=8, top_k=3)
     params = params_from_numpy(port.seeded_params(0, 4, 8, 5, cuda, conf), cuda)
-    return Pipeline(list(port.build_serving_pipeline(params, conf).stages)[:-1])
+    return port.build_featurizer(params, conf).and_then(params.head).serving_chain()
 
 
 def test_graphed_bucket_equals_the_eager_chain(cuda):
@@ -499,3 +504,50 @@ def test_native_sift_comes_to_the_card_in_the_xla_layout(cuda):
     got = SIFTExtractor(backend="native")(imgs)
     assert got.device == imgs.device
     torch.testing.assert_close(got, SIFTExtractor(backend="xla")(imgs), **DESC_TOL)
+
+
+# --- the workflow layer on the card ---------------------------------------------
+
+
+def test_the_graph_walk_on_the_card_equals_the_fused_chain(cuda):
+    """``pipeline(X).get()`` on host images runs on the card (the env's
+    device) and gives the fused serving chain's bits; the parallel walk at
+    two workers, unfused, gives the serial walk's."""
+    from keystone_tpu_torch.config import config
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    conf = port.ImageNetSiftLcsFVConfig(gmm_k=4, pca_dims=8, top_k=3)
+    params = params_from_numpy(port.seeded_params(0, 4, 8, 5, cuda, conf), cuda)
+    scorer = port.build_featurizer(params, conf).and_then(params.head)
+    X = ImageNetLoader.synthetic(n=8, num_classes=3, size=32, seed=1)[0].data[:6]
+    PipelineEnv.reset()
+    with torch.inference_mode(), on_device(cuda):
+        walked = scorer(X).get()
+        assert walked.device.type == "cuda"
+        assert torch.equal(walked, scorer.serving_chain()(torch.from_numpy(X).to(cuda)))
+        prior = config.fuse_chains, config.exec_workers
+        try:
+            config.fuse_chains, config.exec_workers = False, 0
+            serial = scorer(X).get()
+            config.exec_workers = 2
+            parallel = scorer(X).get()
+        finally:
+            config.fuse_chains, config.exec_workers = prior
+    assert torch.equal(serial, parallel)
+
+
+def test_a_disk_cache_entry_loads_onto_the_card(cuda, tmp_path, monkeypatch):
+    from keystone_tpu_torch.nodes.learning.block_least_squares import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    monkeypatch.setenv("KEYSTONE_CACHE_DIR", str(tmp_path))
+    rng = np.random.default_rng(8)
+    X = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32)).to(cuda)
+    Y = torch.from_numpy(rng.normal(size=(64, 2)).astype(np.float32)).to(cuda)
+    PipelineEnv.reset()
+    first = BlockLeastSquaresEstimator(block_size=8, num_iters=2, lam=0.1).with_data(X, Y).fit()
+    PipelineEnv.reset()
+    again = BlockLeastSquaresEstimator(block_size=8, num_iters=2, lam=0.1).with_data(X, Y).fit()
+    head = again.transformers()[0]
+    assert head.W.device.type == "cuda" and torch.equal(head.W, first.transformers()[0].W)
+    PipelineEnv.reset()

@@ -66,7 +66,7 @@ from keystone_tpu_torch.nodes.learning.kmeans import (
 from keystone_tpu_torch.nodes.learning.pca import PCAEstimator, PCATransformer
 from keystone_tpu_torch.nodes.stats.samplers import sample_row_indices, sample_rows
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import on_device
 
 DIST_TOL = dict(rtol=1e-5, atol=1e-4)
 FIT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -227,7 +227,7 @@ def test_pca_matches_the_reference_up_to_sign(given):
 def _fronts():
     return {
         "sift": (GrayScaler().and_then(SIFTExtractor()), JGrayScaler().and_then(JSIFTExtractor(backend="xla"))),
-        "lcs": (Pipeline([LCSExtractor()]), JLCSExtractor().to_pipeline()),
+        "lcs": (LCSExtractor().to_pipeline(), JLCSExtractor().to_pipeline()),
     }
 
 
@@ -258,15 +258,16 @@ def test_fit_fisher_featurizer_on_the_reference_sample():
     jpca = JPCAEstimator(dims=6).fit(flat)
     branch = fit_fisher_featurizer(front, images, pca_dims=6, gmm_k=3, em_iters=4,
                                    sample_size=300, seed=1, device="cpu")
-    names = [type(s).__name__ for s in branch.stages]
+    names = [type(s).__name__ for s in branch.transformers()]
     assert names == ["LCSExtractor", "PCATransformer", "FisherVector", "SignedHellingerMapper", "L2Normalizer"]
-    pca = branch.stages[1]
+    pca = branch.transformers()[1]
     # The port's PCA of the port's sample, against the reference's PCA of
     # its own sample: the samples agree at DESC_TOL, and the first
     # components are well separated on these descriptors.
     jc = np.asarray(jpca.components)[:, :2]
     pc = pca.components.numpy()[:, :2]
     np.testing.assert_allclose(pc * np.sign((pc * jc).sum(axis=0)), jc, atol=1e-3)
-    feats = branch(torch.from_numpy(images)).numpy()
+    with on_device("cpu"):
+        feats = branch(torch.from_numpy(images)).get().numpy()
     assert feats.shape == (6, 2 * 3 * 6)
     np.testing.assert_allclose(np.linalg.norm(feats, axis=1), 1.0, rtol=1e-5)

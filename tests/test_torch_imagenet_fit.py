@@ -37,7 +37,8 @@ from keystone_tpu_torch.nodes.learning.kmeans import KMeansPlusPlusEstimator
 from keystone_tpu_torch.nodes.learning.pca import PCAEstimator
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
 from keystone_tpu_torch.utils.stages import StageTimer
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.nodes.util.misc import Identity
+from keystone_tpu_torch.workflow import on_device
 from keystone_tpu_torch.workflow.serving import CompiledPipeline
 
 ERROR_TOL = 2 / 128
@@ -135,7 +136,7 @@ def test_head_solver_on_the_reference_features_matches_its_head(reference_fit):
     feats = np.array(featurizer(train.data).get())
     test_feats = np.array(featurizer(test.data).get())
     pconf = port.ImageNetSiftLcsFVConfig(gmm_k=4, pca_dims=8, synthetic_classes=16, top_k=3)
-    head = port.fit_head(Pipeline([]), pconf, feats, train.labels, 16, device="cpu").stages[-1]
+    head = port.fit_head(Identity().to_pipeline(), pconf, feats, train.labels, 16, device="cpu").transformers()[-1]
     # The head the reference's run fits, on the same features.
     jhead = JBlockWLS(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam,
                       mixture_weight=conf.mixture_weight).fit(feats, JClassLabelIndicators(16)(train.labels))
@@ -186,8 +187,8 @@ def test_fitted_pipeline_round_trips_and_serves():
     for key in d:
         np.testing.assert_array_equal(again[key], d[key])
     X = test.data[:5]
-    with torch.inference_mode():
-        want = scored(torch.from_numpy(X)).numpy()
+    with torch.inference_mode(), on_device("cpu"):
+        want = scored(torch.from_numpy(X)).get().numpy()
     engine = CompiledPipeline(scored, max_batch=4, devices=["cpu"])
     np.testing.assert_allclose(engine(X), want, **SCORE_TOL)
 
@@ -226,7 +227,7 @@ def test_fit_entry_points_raise_without_cuda(monkeypatch):
         lambda: port.fit(conf, train, 8),
         lambda: port.fit_featurizer(conf, train.data),
         lambda: port.main(["--fit", "--gmm-k", "4"]),
-        lambda: Pipeline([]).and_then(port.BlockWeightedLeastSquaresEstimator(), train.data, train.labels),
+        lambda: Identity().and_then(port.BlockWeightedLeastSquaresEstimator(), train.data, train.labels).fit(),
         # Estimators given host arrays, with no device named.
         lambda: port.BlockWeightedLeastSquaresEstimator().fit(X, Y),
         lambda: BlockLeastSquaresEstimator().fit(X, Y),

@@ -30,7 +30,7 @@ from keystone_tpu.loaders.imagenet import ImageNetLoader as JImageNetLoader
 from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.loaders.stream import BatchIterator
 from keystone_tpu_torch.utils.metrics import ingest_counters
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import FusedTransformer
 
 ROOT = os.path.join(os.path.dirname(__file__), "fixtures", "data", "imagenet")
 DATA = os.path.join(ROOT, "train")
@@ -154,7 +154,7 @@ def test_an_abandoned_stream_stops_its_threads(label_map, through):
     assert _no_port_threads()
     stream = ImageNetLoader.stream_batches(DATA, label_map, batch_size=1, size=SIZE, prefetch=1)
     if through == "apply_batches":
-        stream = Pipeline([]).apply_batches(stream, prefetch_depth=1, device="cpu")
+        stream = FusedTransformer([]).apply_batches(stream, prefetch_depth=1, device="cpu")
     X, y = next(stream)
     assert X.shape == (1, SIZE, SIZE, 3) and len(y) == 1
     assert _port_threads(), "the producer is running"
@@ -173,7 +173,7 @@ def test_a_corrupt_jpeg_raises_in_the_consumer(tmp_path, label_map, through):
         return
     stream = ImageNetLoader.stream_batches(str(data), label_map, batch_size=1, size=SIZE)
     if through == "apply_batches":
-        stream = Pipeline([]).apply_batches(stream, device="cpu")
+        stream = FusedTransformer([]).apply_batches(stream, device="cpu")
     got = []
     with pytest.raises(OSError):
         for X, _ in stream:
@@ -290,9 +290,9 @@ def test_stream_batches_feed_batch_iterators(label_map):
     """A real-data stream and ``BatchIterator.from_arrays`` of the loaded
     arrays give ``apply_batches`` the same batches."""
     whole = ImageNetLoader.load(DATA, label_map, size=SIZE)
-    a = [(X.numpy(), y) for X, y in Pipeline([]).apply_batches(
+    a = [(X.numpy(), y) for X, y in FusedTransformer([]).apply_batches(
         ImageNetLoader.stream_batches(DATA, label_map, batch_size=3, size=SIZE), device="cpu")]
-    b = [(X.numpy(), y) for X, y in Pipeline([]).apply_batches(
+    b = [(X.numpy(), y) for X, y in FusedTransformer([]).apply_batches(
         BatchIterator.from_arrays(whole.data, whole.labels, 3), device="cpu")]
     for (X, y), (WX, Wy) in zip(a, b, strict=True):
         np.testing.assert_array_equal(X, WX)

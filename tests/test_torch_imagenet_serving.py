@@ -36,7 +36,7 @@ from keystone_tpu.workflow import Pipeline as JPipeline
 from keystone_tpu_torch.convert import params_from_numpy
 from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import FusedTransformer, on_device
 from keystone_tpu_torch.workflow.serving import CompiledPipeline, bucket_for, pow2_ladder
 
 K, P, C, SIZE = 4, 8, 5, 32
@@ -107,11 +107,11 @@ def test_serving_pipeline_matches_jax():
 
     params = params_from_numpy(d, device="cpu")
     Xt = torch.from_numpy(X)
-    with torch.inference_mode():
-        feats = port.build_featurizer(params, CONF)(Xt).numpy()
+    with torch.inference_mode(), on_device("cpu"):
+        feats = port.build_featurizer(params, CONF)(Xt).get().numpy()
         pipe = port.build_serving_pipeline(params, CONF)
-        scores = Pipeline(list(pipe.stages)[:-1])(Xt).numpy()
-        topk = pipe(Xt).numpy()
+        scores = port.build_featurizer(params, CONF).and_then(params.head)(Xt).get().numpy()
+        topk = pipe(Xt).get().numpy()
     assert feats.shape == (5, CONF.feature_dim)
     np.testing.assert_allclose(feats, j_feats, **FEAT_TOL)
     np.testing.assert_allclose(scores, j_scores, **SCORE_TOL)
@@ -125,15 +125,14 @@ def test_serving_pipeline_matches_jax():
 @pytest.mark.parametrize("n", [1, 3, 5])
 def test_compiled_pipeline_matches_direct_call(n):
     params = params_from_numpy(_numpy_params(), device="cpu")
-    pipe = port.build_serving_pipeline(params, CONF)
-    scorer = Pipeline(list(pipe.stages)[:-1])
+    scorer = port.build_featurizer(params, CONF).and_then(params.head)
     engine = CompiledPipeline(scorer, max_batch=4, devices=["cpu"])
     engine.warmup((SIZE, SIZE, 3))
     assert engine.ladder == (1, 2, 4)
     X = _images(n, seed=1)
     got = engine(X)
     with torch.inference_mode():
-        want = scorer(torch.from_numpy(X)).numpy()
+        want = engine.transformer(torch.from_numpy(X)).numpy()
     assert got.shape == (n, C)
     np.testing.assert_allclose(got, want, **SCORE_TOL)
     # n=5 is over the top bucket: one chunk of 4, one of 1 padded to 1.
@@ -230,8 +229,8 @@ def test_weights_carried_across_from_a_jax_fit():
         np.testing.assert_array_equal(pca.mean.numpy(), d[f"{br}.pca.mean"])
         for key in ("weights", "means", "variances"):
             np.testing.assert_array_equal(getattr(fv, key).numpy(), d[f"{br}.gmm.{key}"])
-    with torch.inference_mode():
-        feats = port.build_featurizer(params, CONF)(torch.from_numpy(train)).numpy()
+    with torch.inference_mode(), on_device("cpu"):
+        feats = port.build_featurizer(params, CONF)(torch.from_numpy(train)).get().numpy()
     half = feats.shape[1] // 2
     for i, (j, ref) in enumerate(zip(j_feats, exact)):
         got = feats[:, i * half : (i + 1) * half]
@@ -288,7 +287,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         params_from_numpy(d)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.seeded_params(0, K, P, C)
-    scorer = Pipeline([])
+    scorer = FusedTransformer([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         CompiledPipeline(scorer)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -298,6 +297,6 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 def test_cpu_tensors_never_count_kernel_launches():
     before = port_fv.LAUNCHES
     params = params_from_numpy(_numpy_params(), device="cpu")
-    with torch.inference_mode():
-        port.build_featurizer(params, CONF)(torch.from_numpy(_images(2)))
+    with torch.inference_mode(), on_device("cpu"):
+        port.build_featurizer(params, CONF)(torch.from_numpy(_images(2))).get()
     assert port_fv.LAUNCHES == before

@@ -37,6 +37,8 @@ from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.loaders.stream import BatchIterator
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
 from keystone_tpu_torch.utils.stages import StageTimer
+from keystone_tpu_torch.nodes.util.misc import Identity
+from keystone_tpu_torch.workflow import on_device
 
 ERROR_TOL = 2 / 128
 VIEW_TOL = 1e-5
@@ -101,8 +103,8 @@ def test_streamed_tta_averages_equal_the_eager_ones():
     patcher, averager = port.build_tta(conf, 64)
     assert (patcher.crop_size, patcher.num_views) == (56, 10)
     X = test.data[:24]
-    with torch.inference_mode():
-        eager = averager.average_scores(scored(patcher(torch.from_numpy(X)))).numpy()
+    with torch.inference_mode(), on_device("cpu"):
+        eager = averager.average_scores(scored(patcher(torch.from_numpy(X))).get()).numpy()
     # stream_batch 32 → 3 images (30 views) at a time, in batches of 10 images.
     got, labels = port.score_streamed(scored, conf, BatchIterator.from_arrays(X, test.labels[:24], 10),
                                       64, device="cpu")
@@ -125,7 +127,7 @@ def test_the_streamed_fit_marks_its_stages_and_checkpoints(tmp_path):
     assert len(timer.notes["streamed BCD blocks"]) == 2  # one block of 128 features, two epochs
     assert sorted(os.listdir(ck)) == ["epoch_1.pt", "epoch_2.pt"]
     assert not os.path.exists(os.path.join(ck, pbcd.SNAPSHOT))
-    assert scored.stages[-1].W.shape == (128, 8)
+    assert scored.transformers()[-1].W.shape == (128, 8)
 
 
 def test_main_streams_and_augments(capsys):
@@ -150,8 +152,8 @@ def test_streamed_entry_points_raise_without_cuda(monkeypatch):
         lambda: port.run(port.ImageNetSiftLcsFVConfig(**SMALL, stream=True)),
         lambda: port.run_streamed(conf),
         lambda: port.fit_streamed(conf, train.data, batches, 8),
-        lambda: port.score_streamed(port.Pipeline([]), conf, batches, 64),
-        lambda: next(port.Pipeline([]).apply_batches(batches)),
+        lambda: port.score_streamed(Identity().to_pipeline(), conf, batches, 64),
+        lambda: next(Identity().to_pipeline().apply_batches(batches)),
         lambda: port.main(["--stream", "--gmm-k", "4"]),
         lambda: port.BlockWeightedLeastSquaresEstimator(stream=True).fit(X, Y),
     ):

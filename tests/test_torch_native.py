@@ -42,6 +42,7 @@ from keystone_tpu_torch.nodes.images.external.fisher_vector import (
     fit_fisher_featurizer,
 )
 from keystone_tpu_torch.nodes.images.external.sift import SIFTExtractor
+from keystone_tpu_torch.workflow import on_device
 
 DESC_TOL = dict(rtol=2e-4, atol=2e-4)
 COMPILER_OUTPUT = "sift.cpp:1:1: error: forced by the test"
@@ -195,9 +196,10 @@ def test_native_fisher_featurizer_runs_the_host_encoder(rng):
     front = SIFTExtractor(step=4, backend="native")
     pipe = fit_fisher_featurizer(front, images, pca_dims=8, gmm_k=2, em_iters=3, sample_size=200,
                                  device="cpu", backend="native")
-    fv = [s for s in pipe.stages if isinstance(s, FisherVector)]
+    fv = [s for s in pipe.transformers() if isinstance(s, FisherVector)]
     assert len(fv) == 1 and fv[0].backend == "native"
-    out = pipe(torch.from_numpy(images))
+    with on_device("cpu"):
+        out = pipe(torch.from_numpy(images)).get()
     assert out.shape == (6, 2 * 2 * 8) and torch.isfinite(out).all()
 
 

@@ -60,6 +60,8 @@ from keystone_tpu_torch.nodes.util.classifiers import MaxClassifier
 from keystone_tpu_torch.nodes.util.labels import ClassLabelIndicators
 from keystone_tpu_torch.pipelines.images import linear_pixels as port_lp
 from keystone_tpu_torch.pipelines.images import random_patch_cifar as port
+from keystone_tpu_torch.nodes.learning.linear_mapper import LinearMapper
+from keystone_tpu_torch.workflow import PipelineDataset, on_device
 
 CIFAR_FIXTURE = "tests/fixtures/data/cifar/data_batch.bin"
 
@@ -92,8 +94,22 @@ def _close_to_max(got, want, tol):
 
 
 def _port(node, X):
-    with torch.inference_mode():
-        return node(torch.from_numpy(np.ascontiguousarray(X))).numpy()
+    """A port node or pipeline on X on the CPU, as numpy (a pipeline's
+    result is lazy)."""
+    with torch.inference_mode(), on_device("cpu"):
+        out = node(torch.from_numpy(np.ascontiguousarray(X)))
+        return (out.get() if isinstance(out, PipelineDataset) else out).numpy()
+
+
+def _own(pipeline, cls):
+    """The one node of type ``cls`` of a fitted port pipeline (searched
+    through fused chains and gathered branches)."""
+    def flat(t):
+        for part in getattr(t, "stages", None) or getattr(t, "branches", None) or [t]:
+            yield from ([part] if part is t else flat(part))
+
+    (found,) = [n for t in pipeline.fit().transformers() for n in flat(t) if isinstance(n, cls)]
+    return found
 
 
 def _fitted(pipeline, cls):
@@ -256,8 +272,9 @@ def test_random_patch_cifar_matches(cifar_small, feature_dtype):
     # The port's own fit: the same patches and filter picks, filters from
     # its own ZCA.
     own = port.build_featurizer(pconf, train.data, device="cpu")
-    _close_to_max(own.stages[0].filters.numpy(), jconv.filters, 1e-3)
-    _close_to_max(own.stages[0].bias.numpy(), jconv.bias, 1e-3)
+    conv = _own(own, Convolver)
+    _close_to_max(conv.filters.numpy(), jconv.filters, 1e-3)
+    _close_to_max(conv.bias.numpy(), jconv.bias, 1e-3)
 
     feat = port.conv_featurizer(
         pconf, convolver_from_numpy(jconv.filters, jconv.bias, compute_dtype=feature_dtype, device="cpu"))
@@ -269,8 +286,7 @@ def test_random_patch_cifar_matches(cifar_small, feature_dtype):
     jscored = jfeat.and_then(JBlockLeastSquares(block_size=conf.block_size, num_iters=conf.num_iters,
                                                  lam=conf.lam), train.data, targets)
     solver = BlockLeastSquaresEstimator(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam)
-    scored = feat.and_then(solver, train.data, ClassLabelIndicators(10)(torch.as_tensor(train.labels)),
-                           device="cpu")
+    scored = feat.and_then(solver, train.data, ClassLabelIndicators(10)(torch.as_tensor(train.labels)))
     got_s, want_s = _port(scored, test.data), _ref(jscored, test.data)
     _close_to_max(got_s, want_s, 1e-3)
     got_p = _port(scored.and_then(MaxClassifier()), test.data)
@@ -300,7 +316,7 @@ def test_linear_pixels_matches(cifar_small):
         JLinearMapEstimator(lam=conf.lam), train.data, JClassLabelIndicators(10)(train.labels))
     pipe = port_lp.fit(port_lp.LinearPixelsConfig(synthetic_n=SMALL["synthetic_n"]), train.data, train.labels,
                        device="cpu")
-    jmap, mapper = _fitted(jpipe, JLinearMapper), pipe.stages[-2]
+    jmap, mapper = _fitted(jpipe, JLinearMapper), _own(pipe, LinearMapper)
     np.testing.assert_allclose(mapper.W.numpy(), np.asarray(jmap.W), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(mapper.b.numpy(), np.asarray(jmap.b), rtol=1e-3, atol=1e-4)
     got_p = _port(pipe, test.data)

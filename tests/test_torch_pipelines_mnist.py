@@ -54,6 +54,7 @@ from keystone_tpu_torch.nodes.stats.random_signs import RandomSignNode
 from keystone_tpu_torch.nodes.stats.rectifier import LinearRectifier
 from keystone_tpu_torch.nodes.util.classifiers import MaxClassifier
 from keystone_tpu_torch.pipelines.images import mnist_random_fft as port
+from keystone_tpu_torch.workflow import on_device
 
 MNIST_FIXTURE = "tests/fixtures/data/mnist/t10k"
 FFT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -86,6 +87,16 @@ def _fitted(pipeline, cls):
     fitted (a fitted chain may come back fused: its stages are searched)."""
     nodes = [t for t in pipeline.fit().transformers() for t in getattr(t, "stages", [t])]
     (found,) = [t for t in nodes if isinstance(t, cls)]
+    return found
+
+def _own(pipeline, cls):
+    """The one node of type ``cls`` of a fitted port pipeline (searched
+    through fused chains and gathered branches)."""
+    def flat(t):
+        for part in getattr(t, "stages", None) or getattr(t, "branches", None) or [t]:
+            yield from ([part] if part is t else flat(part))
+
+    (found,) = [n for t in pipeline.fit().transformers() for n in flat(t) if isinstance(n, cls)]
     return found
 
 
@@ -258,14 +269,14 @@ def test_pipeline_with_the_reference_signs_matches():
     jfeat = JPipeline.gather([
         JRandomSignNode(s).and_then(JPaddedFFT()).and_then(JLinearRectifier()) for s in signs
     ])
-    with torch.inference_mode():
-        got_f, got_train_f = (featurizer(torch.from_numpy(X)).numpy() for X in (test.data, train.data))
+    with torch.inference_mode(), on_device("cpu"):
+        got_f, got_train_f = (featurizer(torch.from_numpy(X)).get().numpy() for X in (test.data, train.data))
     want_f = _ref(jfeat, test.data)
     assert got_f.shape == want_f.shape == (len(test.data), 2 * 1026)
     np.testing.assert_allclose(got_f, want_f, rtol=1e-5, atol=1e-5)
 
     pipe = port.build_pipeline(pconf, train.data, train.labels, device="cpu", featurizer=featurizer)
-    jmap, mapper = _fitted(jpipe, JLinearMapper), pipe.stages[-2]
+    jmap, mapper = _fitted(jpipe, JLinearMapper), _own(pipe, LinearMapper)
     # 512 rows under 2,052 features: the ridge gram's condition number κ is
     # near 1e4, and a float32 gram summed over n rows is off by about √n·u
     # (u = 2⁻²⁴), so float32 solves land apart. Each W is held against a

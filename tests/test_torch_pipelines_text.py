@@ -176,8 +176,8 @@ def test_amazon_loads_equal(tmp_path):
 
 def test_tokenize_chain():
     chain = Trim().and_then(LowerCase()).and_then(Tokenizer())
-    assert chain.host_stage and isinstance(chain, Pipeline)
-    got = chain(TEXTS)
+    assert isinstance(chain, Pipeline) and all(t.host_stage for t in chain.transformers())
+    got = chain(TEXTS).get()
     assert got == _ref(JTrim().and_then(JLowerCase()).and_then(JTokenizer()), TEXTS)
     assert got[:2] == [["hello", "world"], ["a", "b", "c"]]
     assert Tokenizer(r"\s+").apply("a b,c") == JTokenizer(r"\s+").apply("a b,c") == ["a", "b,c"]
@@ -209,7 +209,7 @@ def test_common_sparse_features_index_equal(num_features):
     front = common.front_end(2)
     jfront = JTrim().and_then(JLowerCase()).and_then(JTokenizer()).and_then(JNGramsFeaturizer(1, 2)).and_then(
         JTermFrequency("log"))
-    maps = front(texts)
+    maps = front(texts).get()
     assert maps == _ref(jfront, texts)
     got, want = CommonSparseFeatures(num_features).fit(maps), JCommonSparseFeatures(num_features).fit(maps)
     assert got.index == want.index and got.dim == want.dim
@@ -262,12 +262,12 @@ class _Majority(LabelEstimator):
 def test_host_prefix_fits_on_the_whole_of_the_data():
     texts = ["a", "bb", "cccc"]
     pipe = Trim().and_then(_Count()).and_then(_Mean(), [" a", "bb", "cccc "])
-    assert pipe.host_stage and pipe(["dddddd"]) == [6 - 7 / 3]
+    assert all(t.host_stage for t in pipe.fit().transformers()) and pipe(["dddddd"]).get() == [6 - 7 / 3]
     est = _Majority()
     labels = np.array([0, 1, 1])
-    fitted = Trim().and_then(_Count()).and_then(est, texts, labels)
+    fitted = Trim().and_then(_Count()).and_then(est, texts, labels).fit()
     assert est.seen[0] == [1, 2, 4] and est.seen[1] is labels
-    assert not fitted.host_stage and fitted(["xy"]) == [2]
+    assert not all(t.host_stage for t in fitted.transformers()) and fitted(["xy"]).get() == [2]
     with pytest.raises(TypeError):
         Trim().and_then(_Mean())
     with pytest.raises(NotImplementedError):
@@ -276,9 +276,10 @@ def test_host_prefix_fits_on_the_whole_of_the_data():
 
 def test_with_data():
     got = _Mean().with_data([1, 2, 3])
-    assert isinstance(got, Pipeline) and got.host_stage and got([5]) == [3.0]
+    assert isinstance(got, Pipeline) and got([5]).get() == [3.0]
+    assert all(t.host_stage for t in got.fit().transformers())
     est = _Majority()
-    assert isinstance(est.with_data(["a"], [1]).stages[0], misc.Identity)
+    assert isinstance(est.with_data(["a"], [1]).fit().transformers()[0], misc.Identity)
 
 
 # --- misc nodes --------------------------------------------------------------
@@ -310,8 +311,8 @@ def test_misc_nodes(rng):
 def _dense_text(num_features=200):
     train = _corpus(n=400)
     front = common.front_end(2)
-    vec = CommonSparseFeatures(num_features).fit(front(train.data))
-    return vec(front(train.data)), train.labels
+    vec = CommonSparseFeatures(num_features).fit(front(train.data).get())
+    return vec(front(train.data)).get(), train.labels
 
 
 def test_naive_bayes_dense_and_carried():

@@ -47,6 +47,7 @@ from keystone_tpu_torch.nodes.images.external.fisher_vector import fit_fisher_fe
 from keystone_tpu_torch.nodes.images.external.sift import SIFTExtractor
 from keystone_tpu_torch.nodes.learning.block_least_squares import BlockLeastSquaresEstimator
 from keystone_tpu_torch.pipelines.images import voc_sift_fisher as port
+from keystone_tpu_torch.workflow import PipelineDataset, on_device
 
 VOC = os.path.join("tests", "fixtures", "data", "voc")
 
@@ -79,8 +80,11 @@ def _close_to_max(got, want, tol):
 
 
 def _port(node, X):
-    with torch.inference_mode():
-        return node(torch.from_numpy(np.ascontiguousarray(X))).numpy()
+    """A port node or pipeline on X on the CPU, as numpy (a pipeline's
+    result is lazy)."""
+    with torch.inference_mode(), on_device("cpu"):
+        out = node(torch.from_numpy(np.ascontiguousarray(X)))
+        return (out.get() if isinstance(out, PipelineDataset) else out).numpy()
 
 
 def _fitted(pipeline, cls):
@@ -223,7 +227,7 @@ def test_pipeline_with_the_reference_parameters_matches(reference_fit):
     _close_to_max(_port(feat.and_then(head), test.data), want_s, 1e-3)
     targets = 2.0 * torch.as_tensor(train.labels, dtype=torch.float32) - 1.0
     solver = BlockLeastSquaresEstimator(block_size=conf.block_size, num_iters=conf.num_iters, lam=conf.lam)
-    got_s = port.scores(feat.and_then(solver, train.data, targets, device="cpu"), test.data, device="cpu")
+    got_s = port.scores(feat.and_then(solver, train.data, targets), test.data, device="cpu")
     _close_to_max(got_s, want_s, 1e-2)
     k = conf.synthetic_classes
     got_map = port.evaluate(got_s, test.labels, k, 0.0)["map"]

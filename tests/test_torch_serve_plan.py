@@ -39,7 +39,7 @@ from keystone_tpu_torch.nodes.learning.pca import PCATransformer
 from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.utils import metrics as pmetrics
 from keystone_tpu_torch.utils.metrics import serve_plan_counters
-from keystone_tpu_torch.workflow import Pipeline, rules
+from keystone_tpu_torch.workflow import FusedTransformer, rules
 from keystone_tpu_torch.workflow import serving
 
 TIGHT = 1e-12
@@ -58,7 +58,7 @@ def _chain(d=8, k=3, seed=0):
     """A small row-independent serving chain of the port, on the CPU."""
     rng = np.random.default_rng(seed)
     comps, _ = np.linalg.qr(rng.normal(size=(d, d)))
-    return Pipeline([
+    return FusedTransformer([
         PCATransformer(comps.astype(np.float32), rng.normal(size=d).astype(np.float32), device="cpu"),
         L2Normalizer(),
         BlockLinearMapper(rng.normal(size=(d, k)).astype(np.float32), [(0, d // 2), (d // 2, d)],
@@ -231,7 +231,7 @@ def _flip_case():
 
 def test_qualify_refuses_a_bf16_engine_naming_metric_and_delta():
     comps, mean, X = _flip_case()
-    port_cp = serving.CompiledPipeline(Pipeline([PCATransformer(comps, mean, device="cpu")]),
+    port_cp = serving.CompiledPipeline(FusedTransformer([PCATransformer(comps, mean, device="cpu")]),
                                        max_batch=16, devices=["cpu"], precision="bf16")
     ref_cp = jserving.CompiledPipeline(JPCATransformer(comps, mean), max_batch=16, devices=1,
                                        precision="bf16", name="port-flip")
@@ -248,7 +248,7 @@ def test_qualify_refuses_a_bf16_engine_naming_metric_and_delta():
 
 def test_qualify_of_an_f32_engine_is_the_identity():
     comps, mean, X = _flip_case()
-    cp = serving.CompiledPipeline(Pipeline([PCATransformer(comps, mean, device="cpu")]),
+    cp = serving.CompiledPipeline(FusedTransformer([PCATransformer(comps, mean, device="cpu")]),
                                   max_batch=16, devices=["cpu"])
     report = cp.qualify(X, tolerance=0.0)
     assert report["quality_delta"] == 0.0 and report["within_tolerance"]

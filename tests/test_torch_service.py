@@ -45,7 +45,7 @@ from keystone_tpu_torch.utils.reliability import (
     WorkerDiedError,
     reset_fault_plan,
 )
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import FusedTransformer
 from keystone_tpu_torch.workflow.serving import CompiledPipeline, PipelineService
 
 D = 8
@@ -83,7 +83,7 @@ def time_limit(seconds: float):
 def _chain(seed=0):
     rng = np.random.default_rng(seed)
     comps, _ = np.linalg.qr(rng.normal(size=(D, D)))
-    return Pipeline([
+    return FusedTransformer([
         PCATransformer(comps.astype(np.float32), rng.normal(size=D).astype(np.float32), device="cpu"),
         L2Normalizer(),
         BlockLinearMapper(rng.normal(size=(D, 3)).astype(np.float32), [(0, 4), (4, D)],

@@ -46,7 +46,7 @@ from keystone_tpu_torch.nodes.learning.block_least_squares import BlockLinearMap
 from keystone_tpu_torch.nodes.learning.pca import PCATransformer
 from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.pipelines.images import imagenet_sift_lcs_fv as port
-from keystone_tpu_torch.workflow import Pipeline, Transformer
+from keystone_tpu_torch.workflow import FusedTransformer, Pipeline, Transformer
 from keystone_tpu_torch.workflow.serving import (
     CompiledPipeline,
     RowDependenceError,
@@ -110,15 +110,20 @@ class _JaxScorer(JTransformer):
         return self.head.apply_batch(jnp.concatenate(feats, axis=-1))
 
 
-def _port_scorer(d=None):
+def _port_scorer_pipeline(d=None) -> Pipeline:
     params = params_from_numpy(_numpy_params() if d is None else d, device="cpu")
-    return Pipeline(list(port.build_serving_pipeline(params, CONF).stages)[:-1])
+    return port.build_featurizer(params, CONF).and_then(params.head)
+
+
+def _port_scorer(d=None):
+    """The scoring pipeline lowered to the one module the engine serves."""
+    return _port_scorer_pipeline(d).serving_chain()
 
 
 def _head(d=8, k=3, seed=0):
     rng = np.random.default_rng(seed)
     comps, _ = np.linalg.qr(rng.normal(size=(d, d)))
-    return Pipeline([
+    return FusedTransformer([
         PCATransformer(comps.astype(np.float32), rng.normal(size=d).astype(np.float32), device="cpu"),
         L2Normalizer(),
         BlockLinearMapper(rng.normal(size=(d, k)).astype(np.float32), [(0, 3), (3, d)],
@@ -221,7 +226,7 @@ def test_apply_batches_keeps_source_order_across_the_pool():
         for (out, _), (X, _) in zip(got, batches):
             np.testing.assert_array_equal(out, one(X))
     # The pipeline's apply_batches hands the stream to the engine.
-    head = _head()
+    head = _head().to_pipeline()
     via = list(head.apply_batches(iter(batches), engine=head.compiled(max_batch=8, devices=CPU3)))
     for (out, y), (X, y0) in zip(via, batches):
         assert y == y0
@@ -230,13 +235,14 @@ def test_apply_batches_keeps_source_order_across_the_pool():
 
 def test_scoring_engine_gives_the_direct_head():
     conf = port.ImageNetSiftLcsFVConfig(gmm_k=K, pca_dims=P, top_k=3, stream_batch=4)
-    scored = _port_scorer()
+    scored = _port_scorer_pipeline()
     X = _images(10, seed=5)
     labels = np.arange(10)
     got, got_labels = port.score_streamed(scored, conf, BatchIterator.from_arrays(X, labels, 4),
                                           SIZE, device="cpu")
     np.testing.assert_array_equal(got_labels, labels)
-    featurizer, head = Pipeline(list(scored.stages)[:-1]), scored.stages[-1]
+    chain = scored.serving_chain()
+    featurizer, head = FusedTransformer(list(chain.stages)[:-1]), chain.stages[-1]
     with torch.inference_mode():
         want = np.concatenate([head(featurizer(torch.from_numpy(X[i : i + 4]))).numpy()
                                for i in range(0, 10, 4)])
@@ -254,7 +260,7 @@ def test_row_coupled_stages_are_refused():
             return X - X.mean(dim=0)
 
     with pytest.raises(RowDependenceError, match="RowMean"):
-        CompiledPipeline(Pipeline([_head(), Pipeline.gather([RowMean()])]), devices=["cpu"])
+        CompiledPipeline(_head().to_pipeline().and_then(Pipeline.gather([RowMean()])), devices=["cpu"])
     with pytest.raises(TypeError, match="cannot serve"):
         CompiledPipeline(lambda X: X, devices=["cpu"])
 
@@ -270,7 +276,7 @@ def test_devices_resolve_like_the_reference(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_serve_devices(devices)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        _head().compiled(max_batch=4)
+        _head().to_pipeline().compiled(max_batch=4)
 
 
 def test_engine_validates_its_traffic():

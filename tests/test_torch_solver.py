@@ -33,7 +33,7 @@ from keystone_tpu_torch.nodes.learning.block_least_squares import (
 from keystone_tpu_torch.nodes.learning.kmeans import KMeansPlusPlusEstimator
 from keystone_tpu_torch.nodes.stats.hellinger import SignedHellingerMapper
 from keystone_tpu_torch.utils.stages import StageTimer
-from keystone_tpu_torch.workflow import Pipeline
+from keystone_tpu_torch.workflow import on_device
 
 SOLVE_TOL = dict(rtol=1e-3, atol=1e-4)
 F64_ATOL = 1e-5
@@ -187,29 +187,33 @@ def test_and_then_fits_the_estimator_on_the_prefix_output():
     kw = dict(block_size=8, num_iters=2, lam=0.2, mixture_weight=0.5)
     j = JSignedHellingerMapper().to_pipeline().and_then(JBlockWLS(**kw), X, Y)
     want = np.asarray(j(X[:30]).get())
-    prefix = Pipeline([SignedHellingerMapper()])
-    fitted = [
-        prefix.and_then(BlockWeightedLeastSquaresEstimator(**kw), X, Y, device="cpu"),
-        # The prefix applied in other batches: the batch size changes no result.
-        prefix.and_then(
-            BlockWeightedLeastSquaresEstimator(**kw).fit(
-                prefix.apply_in_batches(X, batch_size=7, device="cpu"), torch.from_numpy(Y)
-            )
-        ),
-    ]
-    assert [type(s).__name__ for s in fitted[0].stages] == ["SignedHellingerMapper", "BlockLinearMapper"]
-    got = [f(torch.from_numpy(X[:30])).numpy() for f in fitted]
+    prefix = SignedHellingerMapper().to_pipeline()
+    with on_device("cpu"):
+        fitted = [
+            prefix.and_then(BlockWeightedLeastSquaresEstimator(**kw), X, Y).fit(),
+            # The prefix applied in other batches: the batch size changes no result.
+            prefix.and_then(
+                BlockWeightedLeastSquaresEstimator(**kw).fit(
+                    SignedHellingerMapper().apply_in_batches(X, batch_size=7, device="cpu"), torch.from_numpy(Y)
+                )
+            ),
+        ]
+        names = [type(s).__name__ for s in fitted[0].transformers()]
+        assert names == ["SignedHellingerMapper", "BlockLinearMapper"]
+        got = [f(torch.from_numpy(X[:30])).get().numpy() for f in fitted]
     np.testing.assert_array_equal(got[0], got[1])
     np.testing.assert_allclose(got[0], want, **SOLVE_TOL)
 
 
 def test_and_then_with_an_unlabelled_estimator_and_its_errors():
     X = np.random.default_rng(7).normal(size=(60, 4)).astype(np.float32)
-    p = SignedHellingerMapper().and_then(KMeansPlusPlusEstimator(3, seed=1), X, device="cpu")
-    assert p(torch.from_numpy(X)).shape == (60, 3)
+    p = SignedHellingerMapper().and_then(KMeansPlusPlusEstimator(3, seed=1), X)
+    with on_device("cpu"):
+        assert p(torch.from_numpy(X)).get().shape == (60, 3)
+    prefix = SignedHellingerMapper().to_pipeline()
     with pytest.raises(TypeError):
-        Pipeline([]).and_then(KMeansPlusPlusEstimator(3), X, X, device="cpu")
+        prefix.and_then(KMeansPlusPlusEstimator(3), X, X)
     with pytest.raises(TypeError):
-        Pipeline([]).and_then(BlockLeastSquaresEstimator(), X, device="cpu")
+        prefix.and_then(BlockLeastSquaresEstimator(), X)
     with pytest.raises(TypeError):
-        Pipeline([]).and_then(SignedHellingerMapper(), X)
+        prefix.and_then(SignedHellingerMapper(), X)

@@ -55,7 +55,7 @@ from keystone_tpu_torch.nodes.images.patches import CenterCornerPatcher
 from keystone_tpu_torch.nodes.learning.block_least_squares import BlockWeightedLeastSquaresEstimator
 from keystone_tpu_torch.nodes.stats.normalizer import L2Normalizer
 from keystone_tpu_torch.utils.stages import StageTimer
-from keystone_tpu_torch.workflow import Pipeline, Transformer
+from keystone_tpu_torch.workflow import FusedTransformer, Transformer
 
 REF_TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -186,7 +186,7 @@ class _Double(Transformer):
 def test_apply_batches_equals_apply_in_batches(depth):
     X = np.random.default_rng(2).normal(size=(37, 5)).astype(np.float32)
     y = np.arange(37)
-    pipe = Pipeline([_Double(), L2Normalizer()])
+    pipe = FusedTransformer([_Double(), L2Normalizer()])
     want = pipe.apply_in_batches(X, batch_size=8, device="cpu")
     got = list(pipe.apply_batches(BatchIterator.from_arrays(X, y, 8), prefetch_depth=depth, device="cpu"))
     assert [len(o) for o, _ in got] == [8, 8, 8, 8, 5]
